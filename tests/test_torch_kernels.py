@@ -1,0 +1,196 @@
+"""The port's kernel entry points against the JAX package's kernels.
+
+On the CPU every wrapper runs its plain PyTorch version; these tests hold
+those bit-exact against the JAX kernels, run as the JAX package's own tests
+run them (``kernels.ops`` with ``impl="pallas_interpret"``, and the
+``jnp_ref`` oracle), over the case grids of ``kernel_cases.py``.  The CUDA
+kernels themselves are held against these plain versions on the card by
+``test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from kernel_cases import (INGEST_BATCHES, INGEST_DEPTHS, QUERY_DEPTHS, QUERY_SHAPES,
+                          counter_stack, fingerprint_case, ingest_inputs, oracle_moments)
+from repro.core.fingerprint import np_subvalue_fingerprints
+from repro.core.hashing import P31, np_cw_hash
+from repro.core.sjpc import SJPCConfig
+from repro.kernels import ops as jops
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import fingerprint as kfp
+from repro_torch.kernels import fused_ingest as kfi
+from repro_torch.kernels import fused_query as kfq
+
+
+def _np(a):
+    return np.asarray(a)
+
+
+def _t(a):
+    """A JAX/numpy argument as the port takes it: int64 field data, int32
+    counters and weights."""
+    a = np.asarray(a)
+    if a.dtype == np.int32:
+        return torch.from_numpy(a.copy())
+    return torch.from_numpy(a.astype(np.int64))
+
+
+@pytest.fixture(scope="module")
+def rng():
+    return np.random.default_rng(4242)
+
+
+# ---------------------------------------------------------------------------
+# fingerprint
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,d,s", [(1, 4, 2), (37, 5, 3), (130, 6, 4)])
+def test_fingerprint_matches_jax_kernel(rng, B, d, s):
+    args = fingerprint_case(rng, B, d, s)
+    got = ops.fingerprint(*(_t(a) for a in args))
+    oracle = np_subvalue_fingerprints(*(_np(a) for a in args))
+    for impl in ("pallas_interpret", "jnp_ref") if B == 37 else ("pallas_interpret",):
+        want = jops.fingerprint(*args, impl=impl)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), _np(w))
+    for g, o in zip(got, oracle):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), o)
+
+
+def test_fingerprint_accepts_numpy_uint32(rng):
+    args = [_np(a) for a in fingerprint_case(rng, 9, 5, 2)]
+    got = ops.fingerprint(torch.from_numpy(args[0].astype(np.int64)), *args[1:])
+    want = np_subvalue_fingerprints(*args)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+# ---------------------------------------------------------------------------
+# fused_ingest
+# ---------------------------------------------------------------------------
+
+def np_fused_ingest(counters, values, masks, ids, bases, bcoef, scoef, weights):
+    """numpy uint64 oracle of the padded-lattice fused ingest."""
+    out = counters.astype(np.int64)
+    L, t, w = out.shape
+    p = np.uint64(int(P31))
+
+    def pair(fp1, fp2, c):
+        return (np_cw_hash(fp1, c[0]).astype(np.uint64) + np_cw_hash(fp2, c[1])) % p
+
+    for lvl in range(L):
+        fp1, fp2 = np_subvalue_fingerprints(values, masks[lvl], ids[lvl], bases)
+        for i in range(t):
+            bucket = (pair(fp1, fp2, bcoef[lvl, i]) & np.uint64(w - 1)).astype(np.int64)
+            sign = 1 - 2 * (pair(fp1, fp2, scoef[lvl, i]) & np.uint64(1)).astype(np.int64)
+            np.add.at(out[lvl, i], bucket.ravel(), (sign * weights[:, lvl, :]).ravel())
+    return out.astype(np.int32)
+
+
+def _ingest_check(args, impls=()):
+    got = ops.fused_ingest(*(_t(a) for a in args))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np_fused_ingest(*(_np(a) for a in args)))
+    for impl in impls:
+        np.testing.assert_array_equal(got.numpy(), _np(jops.fused_ingest(*args, impl=impl)))
+
+
+@pytest.mark.parametrize("batch", INGEST_BATCHES)
+def test_fused_ingest_batch_remainders(rng, batch):
+    cfg = SJPCConfig(d=5, s=3, width=256, depth=2, seed=3)
+    _, _, args = ingest_inputs(rng, cfg, batch)
+    _ingest_check(args, ("pallas_interpret",) if batch == 17 else ())
+
+
+@pytest.mark.parametrize("depth", INGEST_DEPTHS)
+def test_fused_ingest_depths(rng, depth):
+    cfg = SJPCConfig(d=4, s=2, width=256, depth=depth, seed=4)
+    _, _, args = ingest_inputs(rng, cfg, 50)
+    _ingest_check(args, ("jnp_ref",) if depth == 3 else ())
+
+
+def test_fused_ingest_zero_weights_and_padded_slots(rng):
+    """All-zero weights leave the counters as they were; garbage in the
+    padded table slots (weight 0) changes nothing."""
+    cfg = SJPCConfig(d=4, s=2, width=128, depth=2, seed=6)
+    _, pad, args = ingest_inputs(rng, cfg, 20)
+    targs = [_t(a) for a in args]
+    zero = torch.zeros_like(targs[7])
+    np.testing.assert_array_equal(ops.fused_ingest(*targs[:7], zero).numpy(), _np(args[0]))
+    got = ops.fused_ingest(*targs)
+    masks, ids = np.array(pad.masks), np.array(pad.ids)
+    masks[pad.valid == 0] = 1
+    ids[pad.valid == 0] = 0xDEAD
+    got2 = ops.fused_ingest(targs[0], targs[1], _t(masks), _t(ids), *targs[4:])
+    np.testing.assert_array_equal(got.numpy(), got2.numpy())
+
+
+# ---------------------------------------------------------------------------
+# fused_query
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("depth", QUERY_DEPTHS)
+@pytest.mark.parametrize("N,L,w,block_w", QUERY_SHAPES)
+def test_fused_query_matches_jax_kernel(rng, depth, N, L, w, block_w):
+    a = counter_stack(rng, N, L, depth, w)
+    b = counter_stack(rng, N, L, depth, w)
+    got = ops.fused_query(_t(a), _t(b))
+    assert got.dtype == torch.float32 and got.shape == (N, L, depth)
+    np.testing.assert_array_equal(got.numpy(), _np(jops.fused_query(a, b, impl="jnp_ref")))
+    if depth == 3:
+        want = jops.fused_query(a, b, impl="pallas_interpret", block_w=block_w)
+        np.testing.assert_array_equal(got.numpy(), _np(want))
+    np.testing.assert_array_equal(got.numpy(), oracle_moments(a, b).astype(np.float32))
+    f2 = ops.fused_query(_t(a))
+    np.testing.assert_array_equal(f2.numpy(), oracle_moments(a, a).astype(np.float32))
+
+
+def test_fused_query_empty_and_large(rng):
+    zeros = torch.zeros((2, 3, 3, 128), dtype=torch.int32)
+    np.testing.assert_array_equal(ops.fused_query(zeros).numpy(), np.zeros((2, 3, 3)))
+    # beyond 2^24 the int64 sum, cast once, is the int64 oracle rounded once
+    big = rng.integers(-(2**20), 2**20, size=(1, 2, 3, 512)).astype(np.int32)
+    got = ops.fused_query(torch.from_numpy(big)).numpy()
+    np.testing.assert_array_equal(got, oracle_moments(big, big).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# wrappers: device dispatch and the build
+# ---------------------------------------------------------------------------
+
+def test_wrappers_refuse_other_devices():
+    meta = torch.empty((4, 3), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        kfp.fingerprint(meta, meta, meta[:, 0], meta[0, :2])
+    c = torch.empty((1, 1, 2, 64), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        kfq.fused_query(c, c)
+    with pytest.raises(ValueError):
+        kfi.fused_ingest(c[0], meta, meta, meta, meta, meta, meta, meta)
+
+
+def test_cpu_calls_launch_nothing(rng):
+    before = (kfp.launches, kfi.launches, kfq.launches)
+    cfg = SJPCConfig(d=4, s=2, width=128, depth=2, seed=8)
+    _, _, args = ingest_inputs(rng, cfg, 5)
+    ops.fused_ingest(*(_t(a) for a in args))
+    ops.fused_query(torch.zeros((1, 1, 1, 64), dtype=torch.int32))
+    ops.fingerprint(*(_t(a) for a in fingerprint_case(rng, 3, 4, 2)))
+    assert (kfp.launches, kfi.launches, kfq.launches) == before
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "NVCC_DEFAULT", str(tmp_path / "nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc_path()
+
+
+def test_build_covers_every_source():
+    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert names == sorted(_build.SOURCES) == sorted(_build.SIGNATURES)
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
