@@ -3,6 +3,7 @@
 A port of :mod:`repro` (JAX) to PyTorch with hand-written CUDA kernels for
 Hopper (sm_90a).  Module names mirror the JAX package so each module's
 counterpart is easy to find.  Entry points run on ``cuda`` unless the
-caller passes ``device="cpu"``; on the CPU every kernel wrapper runs its
-plain PyTorch version.
+caller passes ``device="cpu"``; the kernel registry
+(:mod:`.kernels.registry`) runs each kernel's plain PyTorch version on CPU
+tensors and the kernel on CUDA tensors.
 """

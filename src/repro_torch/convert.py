@@ -1,8 +1,9 @@
-"""Carry SJPC parameters and states between this package and numpy.
+"""Carry SJPC parameters and estimator states between this package and
+numpy.
 
-The JAX package's ``SJPCParams`` / ``SJPCState`` hold uint32 / int32 /
-float32 arrays; as numpy arrays they come in here and go back out, so both
-packages can hold the same sketch.
+The JAX package's states hold uint32 / int32 / float32 arrays; as numpy
+arrays they come in here and go back out, so both packages can hold the
+same sketch or sample.  uint32 leaves (records) are int64 tensors here.
 """
 from __future__ import annotations
 
@@ -34,3 +35,28 @@ def state_to_numpy(state: SJPCState) -> tuple[np.ndarray, np.float32, np.int32]:
     """state -> (int32 counters, float32 n, int32 step)."""
     return (state.counters.cpu().numpy().astype(np.int32),
             np.float32(state.n.cpu().item()), np.int32(state.step.cpu().item()))
+
+
+def _is_items(field: str) -> bool:
+    return field.endswith("items")
+
+
+def sample_state_from_numpy(cls, *leaves, device=None):
+    """A reservoir or LSH-SS state (``cls``: ``ReservoirState`` or
+    ``LSHSSState``) from the JAX state's numpy leaves, in field order:
+    uint32 record leaves become int64 tensors, the rest int32.  Leaves may
+    carry a leading stream axis."""
+    device = platform.resolve(device)
+    if len(leaves) != len(cls._fields):
+        raise ValueError(f"{cls.__name__} has {len(cls._fields)} leaves, got {len(leaves)}")
+    return cls(*(as_field_tensor(np.asarray(leaf), device) if _is_items(field)
+                 else torch.from_numpy(np.array(leaf, dtype=np.int32)).to(device)
+                 for field, leaf in zip(cls._fields, leaves)))
+
+
+def sample_state_to_numpy(state) -> tuple:
+    """A reservoir or LSH-SS state -> its leaves as the JAX package holds
+    them: uint32 records, int32 everything else."""
+    return tuple(leaf.cpu().numpy().astype(np.uint32 if _is_items(field) else np.int32)
+                 for field, leaf in zip(state._fields, state))
+

@@ -11,12 +11,16 @@ the same projections as the reference under the default keys:
 * :func:`split` -- the fold-like split: threefry of the 64-bit iota split
   into (hi, lo) words, keys stacked as (bits1, bits2);
 * :func:`uniform` -- 32 random bits ``bits1 ^ bits2``, then the mantissa
-  trick ``(bits >> 9) | 0x3F800000`` viewed as float32, minus 1.
+  trick ``(bits >> 9) | 0x3F800000`` viewed as float32, minus 1;
+* :func:`randint` -- ``jax.random.randint`` with int32 output, per-element
+  bounds included.
 
 A key is an int64 tensor of shape (2,) holding the two uint32 words (what
-``jax.random.key_data`` returns).  Keys are derived on the CPU; draws are
-made on the requested device.  All arithmetic keeps uint32 values in int64
-and masks to 32 bits after every add and shift.
+``jax.random.key_data`` returns).  A stack of keys (..., 2) stands for
+``vmap`` over keys: every function then works per key and puts the key
+axes first.  A single key is read on the host; stacked keys and draws live
+on the requested device.  All arithmetic keeps uint32 values in int64 and
+masks to 32 bits after every add, multiply and shift.
 """
 from __future__ import annotations
 
@@ -32,9 +36,11 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return torch.bitwise_or(torch.bitwise_and(x << r, _MASK32), x >> (32 - r))
 
 
-def threefry2x32(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
+def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
     """The threefry2x32 block cipher (20 rounds) on int64 tensors holding
-    uint32 words; key words are Python ints."""
+    uint32 words.  Key words are Python ints or int64 tensors that
+    broadcast against ``x1``/``x2`` (one key per element, as ``vmap`` over
+    keys gives in JAX)."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x0 = torch.bitwise_and(x1 + ks[0], _MASK32)
     x1 = torch.bitwise_and(x2 + ks[1], _MASK32)
@@ -47,9 +53,14 @@ def threefry2x32(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
     return x0, x1
 
 
-def _words(key: torch.Tensor) -> tuple[int, int]:
-    k1, k2 = (int(v) for v in key.tolist())
-    return k1, k2
+def _words(key: torch.Tensor, extra_dims: int):
+    """The two key words of ``key`` (..., 2): Python ints for one key,
+    else int64 tensors (...,) followed by ``extra_dims`` unit axes."""
+    if key.ndim == 1:
+        k1, k2 = (int(v) for v in key.tolist())
+        return k1, k2
+    index = (Ellipsis,) + (None,) * extra_dims
+    return key[..., 0][index], key[..., 1][index]
 
 
 def PRNGKey(seed: int) -> torch.Tensor:  # noqa: N802 -- mirrors jax.random.PRNGKey
@@ -57,12 +68,23 @@ def PRNGKey(seed: int) -> torch.Tensor:  # noqa: N802 -- mirrors jax.random.PRNG
     return torch.tensor([0, int(seed) & _MASK32], dtype=torch.int64)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in``; ``data`` is taken mod 2^32 (uint32)."""
-    k1, k2 = _words(key)
-    x = torch.tensor([0, int(data) & _MASK32], dtype=torch.int64)
-    y0, y1 = threefry2x32(k1, k2, x[:1], x[1:])
-    return torch.cat([y0, y1])
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``; ``data`` is taken mod 2^32 (uint32).
+
+    One key and an int give one (2,) key.  Keys (..., 2) and/or a data
+    tensor broadcast: the result is (broadcast shape, 2), each element
+    ``fold_in(key_i, data_i)``."""
+    if key.ndim == 1 and not isinstance(data, torch.Tensor):
+        k1, k2 = _words(key, 0)
+        x = torch.tensor([0, int(data) & _MASK32], dtype=torch.int64)
+        y0, y1 = threefry2x32(k1, k2, x[:1], x[1:])
+        return torch.cat([y0, y1])
+    data = torch.bitwise_and(torch.as_tensor(data, dtype=torch.int64).to(key.device),
+                             _MASK32)
+    k1, k2 = key[..., 0], key[..., 1]
+    k1, k2, data = torch.broadcast_tensors(k1, k2, data)
+    y0, y1 = threefry2x32(k1, k2, torch.zeros_like(data), data)
+    return torch.stack([y0, y1], dim=-1)
 
 
 def _iota_2x32(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -71,19 +93,24 @@ def _iota_2x32(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split`` (partitionable): (num, 2) key data."""
-    k1, k2 = _words(key)
-    hi, lo = _iota_2x32(num, "cpu")
+    """``jax.random.split`` (partitionable): (..., num, 2) key data for
+    keys (..., 2)."""
+    k1, k2 = _words(key, 1)
+    hi, lo = _iota_2x32(num, key.device)
     b1, b2 = threefry2x32(k1, k2, hi, lo)
-    return torch.stack([b1, b2], dim=1)
+    return torch.stack([b1, b2], dim=-1)
 
 
 def random_bits(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
-    """32 random bits per element (int64 in [0, 2^32))."""
-    k1, k2 = _words(key)
+    """32 random bits per element (int64 in [0, 2^32)), ``jax.random.bits``
+    with uint32.  Keys (..., 2) give (..., *shape)."""
+    shape = tuple(shape)
+    if key.ndim > 1:
+        key = key.to(device)
+    k1, k2 = _words(key, 1)
     hi, lo = _iota_2x32(math.prod(shape), device)
     b1, b2 = threefry2x32(k1, k2, hi, lo)
-    return torch.bitwise_xor(b1, b2).reshape(shape)
+    return torch.bitwise_xor(b1, b2).reshape(tuple(key.shape[:-1]) + shape)
 
 
 def uniform(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
@@ -91,3 +118,51 @@ def uniform(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
     bits = random_bits(key, shape, device)
     float_bits = torch.bitwise_or(bits >> 9, 0x3F800000).to(torch.int32)
     return float_bits.view(torch.float32) - 1.0
+
+
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def mul_u32(a: torch.Tensor, b) -> torch.Tensor:
+    """(a * b) mod 2^32 for a, b in [0, 2^32), without int64 overflow."""
+    lo = a * torch.bitwise_and(torch.as_tensor(b), 0xFFFF)
+    hi = torch.bitwise_and(a * (torch.as_tensor(b) >> 16), 0xFFFF) << 16
+    return torch.bitwise_and(lo + hi, _MASK32)
+
+
+def randint(key: torch.Tensor, shape, minval, maxval, device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` with int32 output,
+    bit for bit (jax 0.9, ``jax/_src/random.py:_randint``).
+
+    The key splits in two; each half draws 32 bits per value (higher and
+    lower word); ``span = maxval - minval`` as uint32, 1 where
+    ``maxval <= minval``; the offset is
+    ``(hi % span) * (2^32 mod span) + lo % span``, mod span, with JAX's
+    uint32 wrap-around kept (``2^32 mod span`` itself is computed as
+    ``(2^16 mod span)^2`` in uint32, which wraps to 0 for spans above
+    2^16).  ``minval``/``maxval`` are ints or tensors that broadcast to
+    the output, (..., *shape) for keys (..., 2); they must lie in the
+    int32 range.  The arithmetic is int64 with 32-bit masks."""
+    shape = tuple(shape)
+    if key.ndim > 1:
+        key = key.to(device)
+    out_shape = tuple(key.shape[:-1]) + shape
+    lo_b = torch.as_tensor(minval, dtype=torch.int64).to(device)
+    hi_b = torch.as_tensor(maxval, dtype=torch.int64).to(device)
+    for bound in (lo_b, hi_b):
+        if bound.numel() and (int(bound.min()) < _INT32_MIN or int(bound.max()) > _INT32_MAX):
+            raise ValueError("randint bounds must lie in the int32 range")
+    minval, maxval = (torch.broadcast_to(b, out_shape) for b in (lo_b, hi_b))
+    k1, k2 = split(key).unbind(dim=-2)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    span = torch.bitwise_and(maxval - minval, _MASK32)
+    span = torch.where(maxval <= minval, torch.ones_like(span), span)
+    multiplier = torch.remainder(torch.full_like(span, 1 << 16), span)
+    multiplier = torch.remainder(torch.bitwise_and(multiplier * multiplier, _MASK32), span)
+    offset = mul_u32(torch.remainder(higher, span), multiplier)
+    offset = torch.bitwise_and(offset + torch.remainder(lower, span), _MASK32)
+    offset = torch.remainder(offset, span)
+    value = torch.bitwise_and(minval + offset, _MASK32)
+    value = torch.where(value > _INT32_MAX, value - (1 << 32), value)
+    return value.to(torch.int32)

@@ -18,9 +18,10 @@ parameters; Y_k is then the sketch inner product and the inversion drops
 the self-pair term.
 
 On CUDA, :func:`update_fused` runs the ``fused_ingest`` kernel, the
-per-level :func:`update` the ``fingerprint`` kernel, and the batched
-queries the ``fused_query`` kernel; on the CPU the same functions run the
-kernels' plain versions.  Under the default keys the counters equal the JAX
+per-level :func:`update` the ``fingerprint`` kernel (and, through its
+``update_fn`` hook, the ``sketch_update`` kernel), and the batched queries
+the ``fused_query`` kernel; on the CPU the same functions run the kernels'
+plain versions.  Under the default keys the counters equal the JAX
 package's bit for bit: the parameters come from the same numpy draws and
 the sampling replays ``jax.random`` (:mod:`.prng`).
 """
@@ -161,8 +162,8 @@ def advance(state: SJPCState, counters: torch.Tensor, B: int,
 
 
 def update(cfg: SJPCConfig, params: SJPCParams, state: SJPCState, values,
-           key: torch.Tensor | None = None, *,
-           row_mask=None) -> SJPCState:
+           key: torch.Tensor | None = None, *, update_fn=None,
+           row_mask=None, impl: str | None = None) -> SJPCState:
     """Absorb a batch of records level by level.  values: (B, d) uint32
     data (numpy or tensor).
 
@@ -170,19 +171,22 @@ def update(cfg: SJPCConfig, params: SJPCParams, state: SJPCState, values,
     by default it is :func:`default_key` of ``state.step``.  ``row_mask``
     ((B,), optional) marks valid rows; rows with mask 0 contribute nothing
     to the counters or to ``n``.  The fingerprints of each level go through
-    ``kernels.ops.fingerprint`` and the scatter is the reference
-    ``sketch.sketch_update``.
+    ``kernels.ops.fingerprint`` (``impl`` names its implementation; None
+    resolves from the device).  ``update_fn(counters, fp1, fp2,
+    level_params, weights) -> counters`` does the scatter: by default the
+    plain ``sketch.sketch_update``, as in the JAX package;
+    ``kernels.ops.make_sjpc_update_fn()`` runs the ``sketch_update`` op.
     """
     values, B, key, row_mask = _prepare(cfg, state, values, key, row_mask)
     device = state.counters.device
+    update_fn = update_fn or sk.sketch_update
     levels, _ = _lattice_tensors(cfg.d, cfg.s, device)
     level_weights = sample_level_weights(cfg, key, B, row_mask, device)
     new_counters = []
     for idx, ((masks, ids), weights) in enumerate(zip(levels, level_weights)):
-        fp1, fp2 = ops.fingerprint(values, masks, ids, params.fp_bases)
+        fp1, fp2 = ops.fingerprint(values, masks, ids, params.fp_bases, impl=impl)
         level_params = sk.SketchParams(params.bucket_coeffs[idx], params.sign_coeffs[idx])
-        new_counters.append(sk.sketch_update(state.counters[idx], fp1, fp2, level_params,
-                                             weights))
+        new_counters.append(update_fn(state.counters[idx], fp1, fp2, level_params, weights))
     return advance(state, torch.stack(new_counters), B, row_mask)
 
 
@@ -204,11 +208,12 @@ def fused_ingest_args(cfg: SJPCConfig, params: SJPCParams, state: SJPCState, val
 
 def update_fused(cfg: SJPCConfig, params: SJPCParams, state: SJPCState, values,
                  key: torch.Tensor | None = None, *,
-                 row_mask=None) -> SJPCState:
+                 row_mask=None, impl: str | None = None) -> SJPCState:
     """:func:`update` as one fused ingest launch over the padded lattice;
-    bit-identical counters under the same key."""
+    bit-identical counters under the same key.  ``impl`` names the
+    ``fused_ingest`` implementation (None resolves from the device)."""
     args, B, row_mask = fused_ingest_args(cfg, params, state, values, key, row_mask)
-    return advance(state, ops.fused_ingest(*args), B, row_mask)
+    return advance(state, ops.fused_ingest(*args, impl=impl), B, row_mask)
 
 
 def merge(a: SJPCState, b: SJPCState) -> SJPCState:
@@ -385,17 +390,18 @@ def _host(*tensors) -> list[np.ndarray]:
 
 
 def estimate_batch(cfg: SJPCConfig, counters, n, *, clamp: bool = True,
-                   device=None) -> SJPCBatchEstimate:
+                   device=None, impl: str | None = None) -> SJPCBatchEstimate:
     """Self-join estimates for N stacked sketches, all thresholds at once.
 
     counters: (N, levels, t, w) int32 (stacked ``SJPCState.counters`` of
     streams sharing one params draw); n: (N,) records per stream.  Tensor
     counters stay on their device; numpy counters go to ``device``
-    (default: the CUDA card).
+    (default: the CUDA card).  ``impl`` names the ``fused_query``
+    implementation (None resolves from the device).
     """
     counters = _stack_counters(counters, device)
     n = torch.as_tensor(n, dtype=torch.float32).to(counters.device).reshape(counters.shape[0])
-    moments = ops.fused_query(counters)
+    moments = ops.fused_query(counters, impl=impl)
     y, x, g = estimate_from_moments(cfg, moments, n, clamp=clamp, join=False)
     y, x, g, n = _host(y, x, g, n)
     on, off = _batch_bounds(cfg, n, g)
@@ -403,7 +409,8 @@ def estimate_batch(cfg: SJPCConfig, counters, n, *, clamp: bool = True,
 
 
 def estimate_join_batch(cfg: SJPCConfig, counters_a, counters_b, n_a, n_b, *,
-                        clamp: bool = True, device=None) -> SJPCBatchEstimate:
+                        clamp: bool = True, device=None,
+                        impl: str | None = None) -> SJPCBatchEstimate:
     """Join sizes for N stacked sketch PAIRS (identical hash params per
     pair), all thresholds at once.  Error bars: the self-join bound at
     n = max(n_a, n_b) with max(estimate, 1) plugged in."""
@@ -412,7 +419,7 @@ def estimate_join_batch(cfg: SJPCConfig, counters_a, counters_b, n_a, n_b, *,
     N = counters_a.shape[0]
     n_a = torch.as_tensor(n_a, dtype=torch.float32).to(counters_a.device).reshape(N)
     n_b = torch.as_tensor(n_b, dtype=torch.float32).to(counters_a.device).reshape(N)
-    moments = ops.fused_query(counters_a, counters_b)
+    moments = ops.fused_query(counters_a, counters_b, impl=impl)
     y, x, g = estimate_from_moments(cfg, moments, n_a, clamp=clamp, join=True)
     y, x, g, n_a, n_b = _host(y, x, g, n_a, n_b)
     on, off = _batch_bounds(cfg, np.maximum(n_a, n_b), np.maximum(g, 1.0))

@@ -1,2 +1,3 @@
-"""Hand-written CUDA kernels (``csrc/``) for the SJPC main path, their
-ctypes wrappers, and the plain PyTorch versions in :mod:`.ref`."""
+"""Hand-written CUDA kernels (``csrc/``) for the SJPC and estimator paths,
+their ctypes wrappers, the plain PyTorch versions in :mod:`.ref`, and the
+registry (:mod:`.registry`) through which :mod:`.ops` dispatches them."""

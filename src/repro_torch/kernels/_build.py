@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fingerprint", "fused_ingest", "fused_query")
+SOURCES = ("fingerprint", "fused_ingest", "fused_pairs", "fused_query", "sketch_moments",
+           "sketch_update")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 P = ctypes.c_void_p
@@ -36,7 +37,10 @@ SIGNATURES = {
     "fingerprint": ("sjpc_fingerprint", [P, P, P, P, P, P, I64, I32, I32, I32, P]),
     "fused_ingest": ("sjpc_fused_ingest",
                      [P, P, P, P, P, P, P, P, I64, I32, I32, I32, I32, I32, I32, P]),
+    "fused_pairs": ("sjpc_fused_pairs", [P, P, P, I64, I32, I32, I32, P]),
     "fused_query": ("sjpc_fused_query", [P, P, P, I64, I32, I32, P]),
+    "sketch_moments": ("sjpc_sketch_moments", [P, P, P, I32, I32, I32, P]),
+    "sketch_update": ("sjpc_sketch_update", [P, P, P, P, P, P, I64, I32, I32, I32, P]),
 }
 
 _lock = threading.Lock()
@@ -112,6 +116,13 @@ def check(name: str, status: int) -> None:
     """Raise if a kernel's launch reported a CUDA error."""
     if status != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {status}")
+
+
+def require_cuda(name: str, device) -> None:
+    """Raise unless ``device`` is a CUDA device: a kernel wrapper never
+    runs anything else."""
+    if device.type != "cuda":
+        raise ValueError(f"the {name} kernel runs on cuda tensors, not {device}")
 
 
 def require(arg: str, tensor, dtype, shape, device) -> None:

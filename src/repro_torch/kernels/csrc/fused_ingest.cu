@@ -24,18 +24,18 @@
 //
 // Design: grid (CTAs per level, L); one thread per (record, combination)
 // slot of the CTA's level, in a grid-stride loop, fingerprints and hashes
-// in registers.  When the level's (t, w) counter plane fits in 48 KB of
-// shared memory (12 KB at t=3, w=1024) the CTA accumulates into a shared
-// tile and flushes its non-zero entries with global atomics at the end;
-// wider planes (up to w = 2^16 and beyond) take global atomics directly.
+// in registers.  The atomic update of a level's (t, w) plane is the shared
+// device code of sketch_atomic.cuh (also sketch_update.cu's): a shared
+// tile when it fits in 48 KB (12 KB at t=3, w=1024), flushed once per CTA;
+// global atomics for wider planes (up to w = 2^16 and beyond).
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "sketch_atomic.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kSmemTileBytes = 48 * 1024;
 
 template <bool kTile>
 __global__ void __launch_bounds__(kThreads)
@@ -46,23 +46,17 @@ fused_ingest_kernel(int32_t* __restrict__ counters, const int64_t* __restrict__ 
                     int64_t B, int L, int m_max, int d, int t, int w) {
   extern __shared__ uint32_t smem[];
   const int l = blockIdx.y;
-  // Hash coefficients of this level: bucket [0, 8t), sign [8t, 16t).
   uint32_t* coef = smem;
-  for (int i = threadIdx.x; i < 8 * t; i += blockDim.x) {
-    coef[i] = static_cast<uint32_t>(bcoef[static_cast<int64_t>(l) * t * 8 + i]);
-    coef[8 * t + i] = static_cast<uint32_t>(scoef[static_cast<int64_t>(l) * t * 8 + i]);
-  }
+  sjpc::load_coeffs(coef, bcoef + static_cast<int64_t>(l) * t * 8,
+                    scoef + static_cast<int64_t>(l) * t * 8, t);
   // Counters are added as uint32 so that overflow wraps as int32 adds do.
   uint32_t* plane = reinterpret_cast<uint32_t*>(counters) + static_cast<int64_t>(l) * t * w;
   uint32_t* tile = smem + 16 * t;
-  if (kTile) {
-    for (int i = threadIdx.x; i < t * w; i += blockDim.x) tile[i] = 0u;
-  }
+  if (kTile) sjpc::zero_tile(tile, t * w);
   __syncthreads();
 
   const uint32_t base1 = static_cast<uint32_t>(bases[0]);
   const uint32_t base2 = static_cast<uint32_t>(bases[1]);
-  const uint32_t wmask = static_cast<uint32_t>(w - 1);
   uint32_t* dst = kTile ? tile : plane;
   const int64_t total = B * m_max;
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < total;
@@ -75,20 +69,12 @@ fused_ingest_kernel(int32_t* __restrict__ counters, const int64_t* __restrict__ 
     uint32_t fp1, fp2;
     sjpc::masked_horner(values + b * d, masks + slot * d, ids[slot], base1, base2, d,
                         &fp1, &fp2);
-    const uint32_t up = static_cast<uint32_t>(weight);
-    for (int row = 0; row < t; ++row) {
-      const uint32_t hb = sjpc::cw_hash_pair(fp1, fp2, coef + row * 8);
-      const uint32_t hs = sjpc::cw_hash_pair(fp1, fp2, coef + 8 * t + row * 8);
-      atomicAdd(dst + row * w + (hb & wmask), (hs & 1u) ? 0u - up : up);
-    }
+    sjpc::sketch_add(dst, coef, t, w, fp1, fp2, weight);
   }
 
   if (kTile) {
     __syncthreads();
-    for (int i = threadIdx.x; i < t * w; i += blockDim.x) {
-      const uint32_t v = tile[i];
-      if (v != 0u) atomicAdd(plane + i, v);
-    }
+    sjpc::flush_tile(plane, tile, t * w);
   }
 }
 
@@ -102,17 +88,10 @@ extern "C" int sjpc_fused_ingest(void* counters, const void* values, const void*
   cudaSetDevice(device);
   const int64_t total = static_cast<int64_t>(B) * m_max;
   if (total > 0 && L > 0) {
-    const int64_t want = (total + kThreads - 1) / kThreads;
-    const size_t coef_bytes = 16u * t * sizeof(uint32_t);
-    const size_t tile_bytes = static_cast<size_t>(t) * w * sizeof(uint32_t);
-    const bool use_tile = coef_bytes + tile_bytes <= kSmemTileBytes;
-    int sms = 132;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    // A tile CTA flushes t*w counters once, so it should see many slots:
-    // about two CTAs per SM across all levels.
-    int64_t cap = use_tile ? (2 * sms + L - 1) / L : 65535;
-    const int blocks = static_cast<int>(want < cap ? want : cap);
-    const dim3 grid(blocks, L);
+    const bool use_tile = sjpc::tile_fits(t, w);
+    const dim3 grid(sjpc::atomic_grid(total, kThreads, use_tile, L, device), L);
+    const size_t smem = sjpc::coeff_bytes(t)
+                        + (use_tile ? static_cast<size_t>(t) * w * sizeof(uint32_t) : 0);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const auto* v = static_cast<const int64_t*>(values);
     const auto* mk = static_cast<const int64_t*>(masks);
@@ -123,11 +102,11 @@ extern "C" int sjpc_fused_ingest(void* counters, const void* values, const void*
     const auto* wt = static_cast<const int32_t*>(weights);
     auto* c = static_cast<int32_t*>(counters);
     if (use_tile) {
-      fused_ingest_kernel<true><<<grid, kThreads, coef_bytes + tile_bytes, s>>>(
-          c, v, mk, id, bs, bc, sc, wt, B, L, m_max, d, t, w);
+      fused_ingest_kernel<true><<<grid, kThreads, smem, s>>>(c, v, mk, id, bs, bc, sc, wt, B, L,
+                                                             m_max, d, t, w);
     } else {
-      fused_ingest_kernel<false><<<grid, kThreads, coef_bytes, s>>>(
-          c, v, mk, id, bs, bc, sc, wt, B, L, m_max, d, t, w);
+      fused_ingest_kernel<false><<<grid, kThreads, smem, s>>>(c, v, mk, id, bs, bc, sc, wt, B,
+                                                              L, m_max, d, t, w);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -2,14 +2,15 @@
 wrapper.
 
 Replaces the Pallas TPU kernel ``fingerprint_pallas`` of the JAX package.
-CPU tensors go to the plain version (:func:`.ref.fingerprint_ref`); CUDA
-tensors launch the kernel or raise.
+This is the op's ``cuda_sm90`` tier in the kernel registry
+(``kernels/ops.py``); its oracle is the plain version in :mod:`.ref`.  It
+takes CUDA tensors only, launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build, ref
+from . import _build
 
 launches = 0   # kernel launches since the last reset
 
@@ -20,10 +21,7 @@ def fingerprint(values: torch.Tensor, combo_masks: torch.Tensor, combo_ids: torc
     int64 in [0, 2^31-1)."""
     global launches
     device = values.device
-    if device.type == "cpu":
-        return ref.fingerprint_ref(values, combo_masks, combo_ids, bases)
-    if device.type != "cuda":
-        raise ValueError(f"fingerprint runs on cpu or cuda tensors, not {device}")
+    _build.require_cuda("fingerprint", device)
     B, d = values.shape
     M = combo_ids.shape[0]
     _build.require("values", values, torch.int64, (B, d), device)

@@ -2,14 +2,15 @@
 ``csrc/fused_ingest.cu`` and its wrapper.
 
 Replaces the Pallas TPU kernel ``fused_ingest_pallas`` of the JAX package.
-CPU tensors go to the plain version (:func:`.ref.fused_ingest_ref`); CUDA
-tensors launch the kernel or raise.
+This is the op's ``cuda_sm90`` tier in the kernel registry
+(``kernels/ops.py``); its oracle is the plain version in :mod:`.ref`.  It
+takes CUDA tensors only, launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build, ref
+from . import _build
 
 launches = 0   # kernel launches since the last reset
 
@@ -26,11 +27,7 @@ def fused_ingest(counters: torch.Tensor, values: torch.Tensor, masks: torch.Tens
     """
     global launches
     device = counters.device
-    if device.type == "cpu":
-        return ref.fused_ingest_ref(counters, values, masks, ids, bases, bucket_coeffs,
-                                    sign_coeffs, weights)
-    if device.type != "cuda":
-        raise ValueError(f"fused_ingest runs on cpu or cuda tensors, not {device}")
+    _build.require_cuda("fused_ingest", device)
     L, t, w = counters.shape
     B, d = values.shape
     m_max = ids.shape[1]

@@ -2,14 +2,15 @@
 ``csrc/fused_query.cu`` and its wrapper.
 
 Replaces the Pallas TPU kernel ``fused_query_pallas`` of the JAX package.
-CPU tensors go to the plain version (:func:`.ref.fused_query_ref`); CUDA
-tensors launch the kernel or raise.
+This is the op's ``cuda_sm90`` tier in the kernel registry
+(``kernels/ops.py``); its oracle is the plain version in :mod:`.ref`.  It
+takes CUDA tensors only, launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build, ref
+from . import _build
 
 launches = 0   # kernel launches since the last reset
 
@@ -19,10 +20,7 @@ def fused_query(counters_a: torch.Tensor, counters_b: torch.Tensor) -> torch.Ten
     sum_j A*B, exact in int64 and cast once."""
     global launches
     device = counters_a.device
-    if device.type == "cpu":
-        return ref.fused_query_ref(counters_a, counters_b)
-    if device.type != "cuda":
-        raise ValueError(f"fused_query runs on cpu or cuda tensors, not {device}")
+    _build.require_cuda("fused_query", device)
     N, L, t, w = counters_a.shape
     _build.require("counters_a", counters_a, torch.int32, (N, L, t, w), device)
     _build.require("counters_b", counters_b, torch.int32, (N, L, t, w), device)

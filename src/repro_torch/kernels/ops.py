@@ -1,11 +1,18 @@
-"""Public entry points of the SJPC kernels, dispatching on the device.
+"""Public entry points of the SJPC kernels, dispatched through the kernel
+registry (:mod:`.registry`).
 
 The same names and positional arguments as the JAX package's
-``kernels.ops``.  Inputs may be tensors or numpy arrays; numpy arrays go to
-the device of the first tensor argument (or the default device when there
-is none).  Field data (records, masks, ids, bases, coefficients) is carried
-as int64, weights and counters as int32.  CPU tensors run the plain PyTorch
-versions; CUDA tensors run the hand-written kernels.
+``kernels.ops``.  Every op registers two implementations: ``torch_ref``
+(the plain version of :mod:`.ref`, any device) and ``cuda_sm90`` (the
+hand-written kernel, CUDA tensors only).  A call goes by the device of its
+tensors -- CPU tensors run the plain version, CUDA tensors the kernel --
+unless the caller names ``impl=`` for that call.  Every call counts
+``kernel_dispatch_total{kernel, impl}`` in the default metrics registry.
+
+Inputs may be tensors or numpy arrays; numpy arrays go to the device of the
+first tensor argument (or the default device when there is none).  Field
+data (records, masks, ids, bases, coefficients, fingerprints) is carried as
+int64, weights and counters as int32.
 """
 from __future__ import annotations
 
@@ -13,9 +20,17 @@ import torch
 
 from .. import platform
 from ..core.hashing import as_field_tensor
-from .fingerprint import fingerprint as _fingerprint
-from .fused_ingest import fused_ingest as _fused_ingest
-from .fused_query import fused_query as _fused_query
+from ..obs.metrics import default_registry
+from . import fingerprint as _fingerprint
+from . import fused_ingest as _fused_ingest
+from . import fused_pairs as _fused_pairs
+from . import fused_query as _fused_query
+from . import ref
+from . import sketch_moments as _sketch_moments
+from . import sketch_update as _sketch_update
+from .registry import kernel_registry
+
+_REG = kernel_registry()
 
 
 def _device(*xs) -> torch.device:
@@ -35,13 +50,28 @@ def _int32(x, device) -> torch.Tensor:
     return torch.as_tensor(x).to(device=device, dtype=torch.int32).contiguous()
 
 
-def fingerprint(values, combo_masks, combo_ids, bases):
+def _dispatch(op: str, device: torch.device, impl: str | None):
+    """Select one call's implementation and count it."""
+    name, fn = _REG.select(op, device, impl)
+    metrics = default_registry()
+    if metrics.enabled:
+        metrics.inc("kernel_dispatch_total", kernel=op, impl=name)
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def fingerprint(values, combo_masks, combo_ids, bases, *, impl=None):
     """(B, d) records -> two (B, M) sub-value fingerprints."""
     device = _device(values, combo_masks, combo_ids, bases)
-    return _fingerprint(*(_field(x, device) for x in (values, combo_masks, combo_ids, bases)))
+    run = _dispatch("fingerprint", device, impl)
+    return run(*(_field(x, device) for x in (values, combo_masks, combo_ids, bases)))
 
 
-def fused_ingest(counters, values, masks, ids, bases, bucket_coeffs, sign_coeffs, weights):
+def fused_ingest(counters, values, masks, ids, bases, bucket_coeffs, sign_coeffs, weights, *,
+                 impl=None):
     """Fused fingerprint -> multi-level sketch ingest, one launch.
 
     Padded-lattice layout (``projections.padded_lattice``): counters
@@ -49,14 +79,92 @@ def fused_ingest(counters, values, masks, ids, bases, bucket_coeffs, sign_coeffs
     (L, t, 2, 4), weights (B, L, m_max).  Returns new counters.
     """
     device = _device(counters, values)
+    run = _dispatch("fused_ingest", device, impl)
     field = (_field(x, device) for x in (values, masks, ids, bases, bucket_coeffs, sign_coeffs))
-    return _fused_ingest(_int32(counters, device), *field, _int32(weights, device))
+    return run(_int32(counters, device), *field, _int32(weights, device))
 
 
-def fused_query(counters_a, counters_b=None):
+def fused_query(counters_a, counters_b=None, *, impl=None):
     """(N, L, t, w) counter stacks -> (N, L, t) float32 row moments: F2
     when ``counters_b`` is None, else the inner products."""
     device = _device(counters_a, counters_b)
+    run = _dispatch("fused_query", device, impl)
     a = _int32(counters_a, device)
     b = a if counters_b is None else _int32(counters_b, device)
-    return _fused_query(a, b)
+    return run(a, b)
+
+
+def sketch_update(counters, fp1, fp2, params, weights=None, *, impl=None):
+    """Fast-AGMS update of one (t, w) sketch with flat fingerprint keys;
+    ``params`` has ``bucket_coeffs`` and ``sign_coeffs`` (t, 2, 4).
+    ``weights`` None means weight 1 for every key."""
+    device = _device(counters, fp1)
+    run = _dispatch("sketch_update", device, impl)
+    fp1 = _field(fp1, device).reshape(-1)
+    fp2 = _field(fp2, device).reshape(-1)
+    if weights is None:
+        weights = torch.ones(fp1.shape, dtype=torch.int32, device=device)
+    return run(_int32(counters, device), fp1, fp2,
+                     _field(params.bucket_coeffs, device), _field(params.sign_coeffs, device),
+                     _int32(weights, device).reshape(-1))
+
+
+def sketch_moments(counters_a, counters_b=None, *, impl=None):
+    """Row inner products of (t, w) sketches -> (t,) float32; F2 when
+    ``counters_b`` is None."""
+    device = _device(counters_a, counters_b)
+    run = _dispatch("sketch_moments", device, impl)
+    a = _int32(counters_a, device)
+    b = a if counters_b is None else _int32(counters_b, device)
+    return run(a, b)
+
+
+def fused_pairs(items, valid, *, impl=None):
+    """All-pairs similarity histograms of stacked samples.
+
+    items (..., R, d) uint32 data, valid (..., R) -> (..., d+1) int32
+    counts of ordered valid pairs agreeing on exactly k columns.  Extra
+    leading dims collapse into the kernel's N axis and come back on the
+    output, so the bootstrap's (streams, replicates) stack is one launch.
+    An empty sample (R == 0) gives the zero histogram, and the call is
+    still counted.
+    """
+    device = _device(items, valid)
+    items = _field(items, device)
+    valid = _int32(valid, device)
+    lead = tuple(items.shape[:-2])
+    R, d = items.shape[-2:]
+    if tuple(valid.shape) != lead + (R,):
+        raise ValueError(f"valid {tuple(valid.shape)} does not match items "
+                         f"{tuple(items.shape)}")
+    run = _dispatch("fused_pairs", device, impl)
+    if R == 0:
+        return torch.zeros(lead + (d + 1,), dtype=torch.int32, device=device)
+    out = run(items.reshape(-1, R, d), valid.reshape(-1, R))
+    return out.reshape(lead + (d + 1,))
+
+
+def make_sjpc_update_fn(*, impl=None):
+    """An ``update_fn`` for :func:`repro_torch.core.sjpc.update` that runs
+    the ``sketch_update`` op."""
+    def fn(counters, fp1, fp2, level_params, weights):
+        return sketch_update(counters, fp1, fp2, level_params, weights, impl=impl)
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# registrations: six ops, each a kernel and its plain version
+# ---------------------------------------------------------------------------
+
+def _register_all(reg=_REG) -> None:
+    for op, oracle, kernel in (
+            ("fingerprint", ref.fingerprint_ref, _fingerprint.fingerprint),
+            ("fused_ingest", ref.fused_ingest_ref, _fused_ingest.fused_ingest),
+            ("fused_pairs", ref.fused_pairs_ref, _fused_pairs.fused_pairs),
+            ("fused_query", ref.fused_query_ref, _fused_query.fused_query),
+            ("sketch_moments", ref.sketch_moments_ref, _sketch_moments.sketch_moments),
+            ("sketch_update", ref.sketch_update_ref, _sketch_update.sketch_update)):
+        reg.register(op, kernel=kernel, oracle=oracle)
+
+
+_register_all()

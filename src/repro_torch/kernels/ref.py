@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the CUDA kernels.
 
-Each function computes what its kernel computes, on any device.  The kernel
-wrappers run them for CPU tensors; the tests hold them against the JAX
-package, and ``chip_smoke.py`` holds each kernel against them on the card.
-Nothing on the main path calls them for CUDA tensors.
+Each function computes what its kernel computes, on any device: the
+``torch_ref`` tier of its op in the kernel registry and the oracle of the
+op's ``cuda_sm90`` tier.  Dispatch resolves CPU tensors to them; the tests
+hold them against the JAX package, and ``chip_smoke.py`` holds each kernel
+against them on the card.  On the card they run only when a caller names
+``impl="torch_ref"``.
 """
 from __future__ import annotations
 
@@ -43,10 +45,50 @@ def fused_ingest_ref(counters, values, masks, ids, bases,
     return torch.stack(outs)
 
 
-def fused_query_ref(counters_a, counters_b):
-    """Row moments sum_j A*B of (N, L, t, w) int32 stacks -> (N, L, t)
+def sketch_moments_ref(counters_a, counters_b):
+    """Row moments sum_j A*B of (..., t, w) int32 counters -> (..., t)
     float32, summed exactly in int64 and cast once.  Equal to the JAX f32
     reduction while partial sums stay below 2^24; closer to the int64
     oracle ``np_estimate_inner_exact`` above that."""
     prod = counters_a.to(torch.int64) * counters_b.to(torch.int64)
     return prod.sum(dim=-1).to(torch.float32)
+
+
+def fused_query_ref(counters_a, counters_b):
+    """Row moments of (N, L, t, w) int32 stacks -> (N, L, t) float32:
+    :func:`sketch_moments_ref` over the leading dims, one implementation
+    and one exactness contract."""
+    return sketch_moments_ref(counters_a, counters_b)
+
+
+# Pairs of one chunk of fused_pairs_ref: its (chunk, R, R) match tensor
+# stays a few hundred MB (21 samples at R = 1,755).
+PAIRS_CHUNK = 1 << 26
+
+
+def fused_pairs_ref(items, valid):
+    """All-pairs similarity histograms of stacked samples.
+
+    items (N, R, d) integer words; valid (N, R) -> (N, d+1) int32:
+    out[i, k] = the ordered pairs (a != b, both slots valid) of sample i
+    whose records agree on exactly k columns.  Builds the (n, R, R) match
+    count per chunk of samples, column by column, then bins it per level.
+    """
+    N, R, d = items.shape
+    device = items.device
+    out = torch.zeros((N, d + 1), dtype=torch.int32, device=device)
+    if N * R == 0:
+        return out
+    live = valid != 0
+    off_diagonal = ~torch.eye(R, dtype=torch.bool, device=device)
+    step = max(1, PAIRS_CHUNK // (R * R))
+    for lo in range(0, N, step):
+        chunk = items[lo:lo + step]
+        match = torch.zeros((chunk.shape[0], R, R), dtype=torch.int16, device=device)
+        for c in range(d):
+            match += chunk[:, :, None, c] == chunk[:, None, :, c]
+        ok = live[lo:lo + step, :, None] & live[lo:lo + step, None, :] & off_diagonal
+        match = torch.where(ok, match, -1)                    # -1 = masked out
+        out[lo:lo + step] = torch.stack([(match == k).sum(dim=(1, 2)) for k in range(d + 1)],
+                                        dim=1).to(torch.int32)
+    return out

@@ -101,3 +101,90 @@ def test_main_path_on_the_card_equals_the_cpu(cuda):
     want = sjpc.estimate_join_batch(cfg, state_c.counters[None], state_c.counters[None],
                                     n[:1], n[:1])
     np.testing.assert_array_equal(got.y, want.y)
+
+
+# ---------------------------------------------------------------------------
+# fused_pairs, sketch_update, sketch_moments, and the estimator path
+# ---------------------------------------------------------------------------
+
+from repro_torch import estimators as E  # noqa: E402
+from repro_torch.kernels import fused_pairs as kfp2  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import sketch_moments as ksm  # noqa: E402
+from repro_torch.kernels import sketch_update as ksu  # noqa: E402
+from repro_torch.service.ingest import ingest_key_grid  # noqa: E402
+
+
+@pytest.mark.parametrize("N,R,d", [(1, 1, 3), (3, 129, 6), (2, 1755, 6), (1, 300, 16),
+                                   (64, 256, 1)])
+def test_fused_pairs_equals_plain(cuda, N, R, d):
+    rng = np.random.default_rng(N * R + d)
+    items = _t64(rng.integers(0, 3, size=(N, R, d), dtype=np.uint32), cuda)
+    valid = torch.from_numpy((rng.random((N, R)) < 0.8).astype(np.int32)).to(cuda)
+    before = kfp2.launches
+    assert torch.equal(kfp2.fused_pairs(items, valid), ref.fused_pairs_ref(items, valid))
+    assert kfp2.launches == before + 1
+
+
+@pytest.mark.parametrize("n,t,w", [(1, 1, 64), (777, 3, 1024), (4096 * 42, 5, 65536)])
+def test_sketch_update_equals_plain(cuda, n, t, w):
+    rng = np.random.default_rng(n + t)
+    params = sjpc.sk.make_sketch_params(rng, t, device=cuda)
+    fp1, fp2 = (_t64(rng.integers(0, 2**31 - 1, size=n), cuda) for _ in range(2))
+    weights = torch.from_numpy(rng.integers(-2, 3, size=n).astype(np.int32)).to(cuda)
+    counters = torch.from_numpy(rng.integers(-9, 9, size=(t, w)).astype(np.int32)).to(cuda)
+    args = (counters, fp1, fp2, params.bucket_coeffs, params.sign_coeffs, weights)
+    assert torch.equal(ksu.sketch_update(*args), ref.sketch_update_ref(*args))
+    zero = torch.zeros_like(weights)
+    assert torch.equal(ksu.sketch_update(*args[:5], zero), counters)
+
+
+@pytest.mark.parametrize("t,w", [(1, 64), (3, 1024), (5, 65536)])
+def test_sketch_moments_equals_plain(cuda, t, w):
+    rng = np.random.default_rng(t * w)
+    a, b = (torch.from_numpy(rng.integers(-(2**20), 2**20, size=(t, w)).astype(np.int32))
+            .to(cuda) for _ in range(2))
+    assert torch.equal(ksm.sketch_moments(a, b), ref.sketch_moments_ref(a, b))
+    assert torch.equal(ksm.sketch_moments(a, a), kfq.fused_query(a[None, None],
+                                                                 a[None, None])[0, 0])
+
+
+@pytest.mark.parametrize("kind", ["sjpc", "reservoir", "lsh_ss"])
+def test_estimator_round_trip_on_the_card_equals_the_cpu(cuda, kind):
+    """ingest_rounds, merge, subtract and estimate_batch on the card give
+    the CPU's states and tables (the CPU runs the plain versions)."""
+    cfg = sjpc.SJPCConfig(d=6, s=3, width=256, depth=3, seed=11)
+    rng = np.random.default_rng(11)
+    R, S, B = 3, 4, 500
+    values = rng.integers(0, 5, size=(R, S, B, 6)).astype(np.uint32)
+    mask = np.ones((R, S, B), np.int32)
+    mask[-1, :, 300:] = 0
+    opts = {"use_fused": False} if kind == "sjpc" else None
+    results = []
+    for device in (cuda, torch.device("cpu")):
+        est = E.make(kind, cfg, device=device, opts=opts)
+        keys = ingest_key_grid(est.ingest_seed, np.arange(S),
+                               np.broadcast_to(np.arange(R)[:, None], (R, S)))
+        states = E.stack_states([est.init(sid=i + 1) for i in range(S)])
+        states = est.ingest_rounds(states, values, mask, keys)
+        a, b = E.index_state(states, 0), E.index_state(states, 1)
+        back = est.subtract(est.merge(a, b), b)
+        results.append((states, back, est.estimate_batch(states)))
+    (sg, bg, tg), (sc, bc, tc) = results
+    for got, want in ((sg, sc), (bg, bc)):
+        for leaf_g, leaf_c in zip(got, want):
+            assert torch.equal(leaf_g.cpu(), leaf_c)
+    for field in ("x", "g", "y", "n", "stderr", "stderr_offline"):
+        np.testing.assert_array_equal(getattr(tg, field), getattr(tc, field))
+
+
+def test_registry_resolves_cuda_tensors_to_the_kernels(cuda):
+    from repro_torch.kernels.registry import kernel_registry
+    reg = kernel_registry()
+    assert {reg.select(op, cuda)[0] for op in reg.ops()} == {"cuda_sm90"}
+    items = torch.zeros((2, 5, 3), dtype=torch.int64, device=cuda)
+    valid = torch.ones((2, 5), dtype=torch.int32, device=cuda)
+    before = kfp2.launches
+    out = ops.fused_pairs(items[:, None], valid[:, None])
+    assert kfp2.launches == before + 1 and out.shape == (2, 1, 4)
+    assert int(out[0, 0, 3]) == 20

@@ -88,3 +88,74 @@ def test_sample_combo_weights(ratio, m):
         got = tproj.sample_combo_weights(tkey, batch, m, ratio)
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# randint, and stacked keys (vmap over keys in the JAX package)
+# ---------------------------------------------------------------------------
+
+def _tkey(key):
+    return torch.from_numpy(np.asarray(key).astype(np.int64))
+
+
+@pytest.mark.parametrize("minval,maxval", [
+    (0, 1), (0, 7), (3, 10), (0, 1 << 16), (0, (1 << 16) + 1), (0, 1 << 20),
+    (0, 2**31 - 1), (-5, 2**31 - 1), (-(2**31), 2**31 - 1), (-(2**31), 0), (-40, -3),
+    (5, 5), (9, 2), (0, 1755), (0, 4096)])
+def test_randint_scalar_bounds(minval, maxval):
+    """Spans of 1, powers of two, just above 2^16 (where JAX's multiplier
+    wraps), near 2^31 and 2^32, and maxval <= minval (always minval)."""
+    key = jax.random.fold_in(jax.random.PRNGKey(17), minval & 0xFFFF)
+    want = np.asarray(jax.random.randint(key, (6, 9), minval, maxval))
+    got = prng.randint(_tkey(key), (6, 9), minval, maxval)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(40,), (5, 8)])
+def test_randint_array_maxval(shape):
+    """Per-element maxval, as the reservoir's arrival ranks use it
+    (``randint(key, (B,), 0, max(gidx + 1, 1))``), including maxval <= 0."""
+    rng = np.random.default_rng(sum(shape))
+    maxval = rng.integers(-3, 2**31 - 1, size=shape).astype(np.int32)
+    maxval.flat[:3] = (0, 1, 2**31 - 1)
+    key = jax.random.PRNGKey(3)
+    want = np.asarray(jax.random.randint(key, shape, 0, jnp.asarray(maxval)))
+    got = prng.randint(_tkey(key), shape, 0, torch.from_numpy(maxval))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_randint_batched_keys_and_bounds():
+    """Stacked keys with per-key bounds equal ``vmap`` of randint."""
+    keys = jax.random.split(jax.random.PRNGKey(11), 5)
+    maxval = jnp.asarray([1, 2, 1000, 2**31 - 1, 0], jnp.int32)
+    want = np.asarray(jax.vmap(lambda k, m: jax.random.randint(k, (3, 4), 0, m))(keys, maxval))
+    got = prng.randint(_tkey(keys), (3, 4), 0, torch.from_numpy(np.array(maxval))[:, None, None])
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError):
+        prng.randint(_tkey(keys[0]), (2,), 0, 2**31)
+
+
+def test_stacked_keys_fold_in_split_bits():
+    keys = jax.random.split(jax.random.PRNGKey(23), 4)
+    tkeys = _tkey(keys)
+    data = jnp.asarray([0, 1, 2**31 - 1, 7], jnp.int32)
+    np.testing.assert_array_equal(
+        prng.fold_in(tkeys, torch.from_numpy(np.array(data))).numpy(),
+        np.asarray(jax.vmap(jax.random.fold_in)(keys, data)))
+    np.testing.assert_array_equal(
+        prng.fold_in(tkeys, 9).numpy(),
+        np.asarray(jax.vmap(lambda k: jax.random.fold_in(k, 9))(keys)))
+    np.testing.assert_array_equal(prng.split(tkeys, 5).numpy(),
+                                  np.asarray(jax.vmap(lambda k: jax.random.split(k, 5))(keys)))
+    np.testing.assert_array_equal(
+        prng.random_bits(tkeys, (2, 3)).numpy(),
+        np.asarray(jax.vmap(lambda k: jax.random.bits(k, (2, 3)))(keys)))
+    np.testing.assert_array_equal(
+        prng.uniform(tkeys, (6,)).numpy(),
+        np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (6,)))(keys)))
+    # one key broadcast against a data grid, as the ingest key grid does
+    grid = np.arange(6, dtype=np.int32).reshape(2, 3)
+    np.testing.assert_array_equal(
+        prng.fold_in(tkeys[0], torch.from_numpy(grid)).numpy(),
+        np.asarray(jax.vmap(jax.vmap(lambda d: jax.random.fold_in(keys[0], d)))(grid)))
