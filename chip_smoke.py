@@ -15,11 +15,23 @@ w=1024, t=3):
   LSH-SS, each at its own factory's size, over 64 streams of 16 rounds of
   4,096 records (the unfused SJPC path on 8 of them), the window algebra,
   ``estimate_batch`` with bootstrap error bars over the 64 streams and over
-  1,024 tenants, and the per-stream level F2 through ``sketch_moments``.
+  1,024 tenants, and the per-stream level F2 through ``sketch_moments``;
+* the dense serving path (``serve`` phase): qwen2.5-3b at full width and
+  depth (36 layers, d_model 2048, GQA 16:2, head_dim 128, vocab 151,936),
+  random f32 weights from a seeded ``torch.Generator`` on the card, 4
+  prompts of 10,240 tokens (prompt 2 repeats prompt 0) through
+  ``greedy_generate`` for 16 tokens -- every layer's prefill attention runs
+  the ``flash_attention`` kernel -- and the SJPC request monitor over the
+  prompts (``fingerprint`` kernel).
 
 Every result of a kernel path is compared with the same computation
 through the plain versions on the card (``impl="torch_ref"``); LSH-SS,
-which launches no kernel, is held against its ``estimate_ref``.  The launch
+which launches no kernel, is held against its ``estimate_ref``.  The flash
+kernel agrees with its plain version within 2e-5 in f32, and in bf16
+within one bf16 ulp of the plain value plus 2e-5 (and 2e-2 anywhere); the
+other kernels bit for bit.  The serve phase also holds the prefill's K/V
+cache of every layer against the plain path's, and the request monitor's
+fingerprints and counters against the plain versions.  The launch
 counts and ``kernel_dispatch_total`` show that every kernel call of those
 paths ran the hand-written kernel.  Prints a ``{"kernels": [...]}`` line
 with each kernel's launches, times and bound, the card's name and power
@@ -39,32 +51,46 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import configs  # noqa: E402
 from repro_torch import estimators as E  # noqa: E402
 from repro_torch.configs.sjpc_paper import PAPER_DEFAULTS  # noqa: E402
 from repro_torch.core import exact, sjpc  # noqa: E402
 from repro_torch.core import projections as proj  # noqa: E402
 from repro_torch.core import sketch as sk  # noqa: E402
 from repro_torch.core.hashing import P31, as_field_tensor  # noqa: E402
+from repro_torch.data.recordize import np_records_from_tokens, records_from_tokens  # noqa: E402
 from repro_torch.data.synthetic import shingle_records  # noqa: E402
 from repro_torch.kernels import _build, ops, ref, registry  # noqa: E402
 from repro_torch.kernels import fingerprint as kfp  # noqa: E402
+from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import fused_ingest as kfi  # noqa: E402
 from repro_torch.kernels import fused_pairs as kpairs  # noqa: E402
 from repro_torch.kernels import fused_query as kfq  # noqa: E402
 from repro_torch.kernels import sketch_moments as ksm  # noqa: E402
 from repro_torch.kernels import sketch_update as ksu  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.config import compute_dims  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
 from repro_torch.service.ingest import ingest_key_grid  # noqa: E402
+from repro_torch.sketchstream import monitor as mon  # noqa: E402
 
 # Peak rates of one H100 SXM (NVIDIA data sheet and Hopper white paper):
 # HBM3 bandwidth, and 32-bit integer operations on the CUDA cores
 # (132 SMs x 64 INT32 lanes x 1.98 GHz boost clock).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# float32 FMA on the CUDA cores (132 SMs x 128 FP32 lanes x 2 flops x
+# 1.98 GHz), the rate of f32 attention without TF32; and the dense bf16
+# tensor-core rate, the least time of a bf16-input function that
+# accumulates in f32.
+F32_FLOPS_PER_S = 132 * 128 * 2 * 1.98e9
+BF16_TENSOR_FLOPS_PER_S = 989e12
 # A field element (record column, mask, id, base, hash coefficient,
 # fingerprint) is a uint32 in the functions the kernels compute.
 FIELD_BYTES = 4
@@ -91,9 +117,33 @@ KINDS = ("sjpc", "reservoir", "lsh_ss")
 # PyTorch code with no kernel, so its plain path would be the same code
 KERNEL_KINDS = ("sjpc", "reservoir")
 
+# The serve phase: qwen2.5-3b, 4 prompts of 10,240 tokens (5 x the 2048
+# attention chunk, above the 8192-token threshold of the flash branch; the
+# repo's prefill_32k shape is 32,768 tokens x 32, cut to fit the script's
+# time), 16 greedy tokens, f32 (greedy_generate's compute dtype).
+SERVE_ARCH = "qwen2.5-3b"
+SERVE_BATCH = 4
+SERVE_PROMPT = 10240
+SERVE_STEPS = 16
+SERVE_SEED = 0
+SERVE_CHUNK = 2048             # prefill's attention tiles (the plain version's)
+LOGITS_RTOL = 1e-4             # kernel vs plain prefill logits, relative to max |logit|
+KV_RTOL = 1e-4                 # kernel vs plain prefill K/V cache, relative to max |x|
+# flash_attention against its plain version.  Both compute in f32, in their
+# own tiles and order, and agree within FLASH_F32_TOL there (the JAX
+# package's flash-kernel tolerance).  A bf16 output is that f32 value
+# rounded, so in bf16 the two may differ by one bf16 ulp of the plain value
+# on top; and by no more than FLASH_BF16_TOL anywhere (the JAX package's
+# bf16 limit).
+FLASH_F32_TOL = 2e-5
+FLASH_BF16_TOL = 2e-2
+MONITOR = mon.SketchMonitorConfig(d=4, s=4, ratio=1.0, width=1024, depth=3, shards=1)
+
 KERNELS = {"fused_ingest": kfi, "fingerprint": kfp, "fused_query": kfq,
-           "fused_pairs": kpairs, "sketch_update": ksu, "sketch_moments": ksm}
-REPLACES = {"fused_ingest": "src/repro/kernels/fused_ingest.py:85",
+           "fused_pairs": kpairs, "sketch_update": ksu, "sketch_moments": ksm,
+           "flash_attention": kfa}
+REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:87",
+            "fused_ingest": "src/repro/kernels/fused_ingest.py:85",
             "fingerprint": "src/repro/kernels/fingerprint.py:41",
             "fused_query": "src/repro/kernels/fused_query.py:54",
             "fused_pairs": "src/repro/kernels/fused_pairs.py:85",
@@ -199,11 +249,22 @@ def device_ms(fn, calls: int, flush: torch.Tensor) -> tuple[float, float]:
     return float(np.median(times)), host_s / calls * 1e3
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    """The least time for the work: bytes over HBM bandwidth or integer
-    operations over the INT32 peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
+    """The least time for the work: bytes over HBM bandwidth or operations
+    over their peak rate (default the INT32 one), whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_work(q, k, causal: bool) -> tuple[int, int]:
+    """(bytes, flops) of attention over q (B, Sq, H, hd), k/v (B, Skv, KV,
+    hd): q, k and v read once and the output written once; 4 * hd flops
+    (two multiply-adds per dimension) per visible (query, key) pair."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return nbytes, 4 * hd * b * h * pairs
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +347,17 @@ def phase_kernels(device) -> None:
             require(equal(got[0], want[0]) and equal(got[1], want[1]),
                     f"fingerprint B={batch} level={lvl}")
             n_checks += 1
+    # the request monitor's lattice (d=4, s=4: one level, one combination)
+    mrng = np.random.default_rng(2025)
+    mlevel = proj.lattice(MONITOR.d, MONITOR.s)[0]
+    for batch in (1, SERVE_BATCH, 1000, BATCH):
+        args = ingest_case(mrng, device, batch, MONITOR.d, MONITOR.s, 1024, 3)
+        fargs = (args[1], args[2][0, :mlevel.num].contiguous(),
+                 args[3][0, :mlevel.num].contiguous(), args[4])
+        got, want = kfp.fingerprint(*fargs), ref.fingerprint_ref(*fargs)
+        require(equal(got[0], want[0]) and equal(got[1], want[1]),
+                f"fingerprint d={MONITOR.d} s={MONITOR.s} B={batch}")
+        n_checks += 1
     ingest_shapes = [(b, w, t) for b in (1, 777) for w in (64, 1024, 65536)
                      for t in (1, 2, 3, 5)]
     ingest_shapes += [(BATCH, 1024, 3), (BATCH, 65536, 5), (4099, 1024, 2)]
@@ -318,6 +390,71 @@ def phase_kernels(device) -> None:
     n_checks += check_sketch_update_grid(rng, device)
     n_checks += check_sketch_moments_grid(rng, device)
     log(f"kernels: {n_checks} kernel-vs-plain checks bit-exact")
+    check_flash_grid(rng, device)
+
+
+def attention_case(rng, device, b, sq, skv, h, kv, hd, dtype=torch.float32):
+    """q, k, v of standard normal values (numpy draws) in ``dtype``."""
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device, dtype)
+                 for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd)))
+
+
+def flash_limit(want: torch.Tensor) -> torch.Tensor:
+    """Per element, the most the kernel's output may differ from its plain
+    version's ``want``: FLASH_F32_TOL, plus in bf16 one bf16 ulp of want
+    (2^(e-8) for |want| in [2^(e-1), 2^e))."""
+    w = want.float()
+    if want.dtype == torch.float32:
+        return torch.full_like(w, FLASH_F32_TOL)
+    _, e = torch.frexp(w)
+    return torch.ldexp(torch.ones_like(w), e - 8) * (w != 0) + FLASH_F32_TOL
+
+
+def check_flash(q, k, v, causal, block_q, block_k, what) -> float:
+    """The kernel against its plain version (in the given blocks), element
+    by element within :func:`flash_limit`; returns the max abs difference."""
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
+    require(got.dtype == want.dtype == q.dtype and got.shape == q.shape, f"{what}: dtype/shape")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    over = int((diff > flash_limit(want)).sum())
+    cap = FLASH_F32_TOL if q.dtype == torch.float32 else FLASH_BF16_TOL
+    require(over == 0 and err <= cap,
+            f"{what}: {over} elements beyond the limit, max abs err {err} (cap {cap})")
+    return err
+
+
+def check_flash_grid(rng, device) -> None:
+    """flash_attention against its plain version: the JAX kernel tests'
+    grid (shapes x causality, block shapes, bf16, the first token) and
+    ragged tiles.  The serve phase's layer shape is checked in
+    :func:`flash_row`, in f32 and bf16."""
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_checks = 0
+    cases = [((b, sq, skv, h, kv, hd), torch.float32, causal, 32, 32)
+             for b, sq, skv, h, kv, hd in ((2, 64, 64, 4, 2, 16), (1, 128, 128, 8, 8, 32),
+                                           (2, 64, 128, 4, 1, 16), (1, 96, 96, 6, 3, 64))
+             for causal in (True, False)]
+    cases += [((2, 128, 128, 4, 2, 32), torch.float32, True, bq, bk)
+              for bq, bk in ((16, 16), (32, 64), (64, 32), (128, 128))]
+    cases += [((1, 64, 64, 4, 2, 32), torch.bfloat16, True, 32, 32)]
+    cases += [((1, sq, skv, 16, 2, 128), dtype, causal, sq, skv)
+              for sq, skv in ((200, 200), (1000, 1000), (64, 300))
+              for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)]
+    for shape, dtype, causal, bq, bk in cases:
+        q, k, v = attention_case(rng, device, *shape, dtype=dtype)
+        err = check_flash(q, k, v, causal, bq, bk, f"flash_attention {shape} {dtype} "
+                                                    f"causal={causal}")
+        errs[dtype] = max(errs[dtype], err)
+        n_checks += 1
+    q, k, v = attention_case(rng, device, 1, 32, 32, 2, 2, 16)
+    first = kfa.flash_attention(q, k, v, causal=True)[:, 0]
+    require(float((first - v[:, 0]).abs().max()) <= 1e-5, "flash_attention: first token != v[0]")
+    log(f"kernels: {n_checks + 1} flash_attention checks against the plain version, max abs "
+        f"err {errs[torch.float32]:.3g} (f32, limit {FLASH_F32_TOL}) and "
+        f"{errs[torch.bfloat16]:.3g} (bf16, limit one bf16 ulp + {FLASH_F32_TOL}, cap "
+        f"{FLASH_BF16_TOL})")
 
 
 def check_pairs_grid(rng, device) -> int:
@@ -674,6 +811,247 @@ def phase_estimators(device, cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the dense serving path
+# ---------------------------------------------------------------------------
+
+def serve_prompts(vocab: int) -> np.ndarray:
+    """(4, 10240) token ids from the seed; prompt 2 repeats prompt 0 (a
+    duplicate request, as in examples/serve_decode.py)."""
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = rng.integers(0, vocab, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int64)
+    prompts[2] = prompts[0]
+    return prompts
+
+
+def profiled(fn):
+    """``fn()`` under ``torch.profiler``: (host seconds from a synchronised
+    start to a synchronised end, device seconds summed over its kernels,
+    the five kernels with the most device time as (name, ms), the result).
+    One stream, so the device seconds over the host seconds is the card's
+    busy share."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        seconds, out = synced_s(fn)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(((e.key[:60], e.self_device_time_total / 1e3) for e in kernels),
+                 key=lambda t: -t[1])[:5]
+    return seconds, busy, top, out
+
+
+def log_profile(what: str, seconds: float, busy: float, top) -> None:
+    share = f"{1 - busy / seconds:.3f}" if busy > 0 else "not measured (no device events)"
+    log(f"profile {what}: {seconds * 1e3:.1f} ms host, {busy * 1e3:.1f} ms of kernels, device "
+        f"idle share {share}; top kernels (ms): "
+        + "; ".join(f"{name} {ms:.1f}" for name, ms in top))
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def phase_serve(device) -> dict:
+    """qwen2.5-3b at full width and depth: greedy_generate over four
+    10,240-token prompts and the SJPC request monitor (the main path, with
+    the launch counts around it), then the same prefill and decode timed
+    step by step, then the plain path on the card (``impl="torch_ref"``).
+    Returns the numbers the kernel table needs."""
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are enabled")
+    cfg = configs.get(SERVE_ARCH)
+    dims = compute_dims(cfg)
+    generator = torch.Generator(device=device).manual_seed(SERVE_SEED)
+    init_s, params = synced_s(lambda: M.init_params(generator, cfg, dims, device=device))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"serve: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, vocab {cfg.vocab_size}: "
+        f"{n_params} f32 parameters ({n_params * 4 / 1e9:.2f} GB) drawn in {init_s:.1f} s")
+    prompts_np = serve_prompts(cfg.vocab_size)
+    prompts = torch.from_numpy(prompts_np).to(device)
+    B, S, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+
+    # the main path: greedy generation, then the request monitor
+    reset_counts()
+    gen_s, tokens = synced_s(lambda: serve.greedy_generate(params, cfg, dims, prompts, steps))
+    mparams, mstate = mon.init_monitor(MONITOR, device=device)
+    counters, n = mon.monitor_update_local(MONITOR, mparams, mstate.counters[0], mstate.n[0],
+                                           prompts, mstate.step)
+    est = mon.monitor_estimate(MONITOR, mon.MonitorState(counters[None], n[None], mstate.step))
+    registry_now = metrics.default_registry()
+    flash_kernel = registry_now.counter("kernel_dispatch_total", kernel="flash_attention",
+                                        impl=registry.CUDA_SM90)
+    flash_plain = registry_now.counter("kernel_dispatch_total", kernel="flash_attention",
+                                       impl=registry.TORCH_REF)
+    counts = read_counts("serve", ("flash_attention", "fingerprint"))
+    require(flash_kernel == cfg.num_layers and flash_plain == 0 and
+            counts["flash_attention"] == cfg.num_layers,
+            f"serve: flash_attention dispatches {flash_kernel} cuda_sm90 / {flash_plain} "
+            f"torch_ref, {counts['flash_attention']} launches; expected {cfg.num_layers} / 0")
+    require(tuple(tokens.shape) == (B, steps) and tokens.dtype == torch.int32, "serve: tokens")
+    require(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "serve: token ids")
+    require(torch.equal(tokens[0], tokens[2]), "serve: duplicate prompts generated differently")
+    log(f"serve: greedy_generate of {B} x {S} prompt tokens + {steps} tokens in {gen_s:.3f} s "
+        f"(host clock); {counts['flash_attention']} flash_attention launches, all "
+        f"{registry.CUDA_SM90}; tokens row 0 {tokens[0].tolist()}")
+
+    records = records_from_tokens(prompts, MONITOR.d)
+    require(np.array_equal(records.cpu().numpy(),
+                           np_records_from_tokens(prompts_np, MONITOR.d).astype(np.int64)),
+            "serve: monitor records != np_records_from_tokens")
+    require(float(n) == B, "serve: monitor n")
+    # the monitor's fingerprint launch, on its own records, lattice and
+    # bases, against the plain version; and the whole monitor update against
+    # the same one run on the CPU, where the plain versions run
+    values = as_field_tensor(records, device)
+    for level in proj.lattice(MONITOR.d, MONITOR.s):
+        fargs = (values, torch.from_numpy(level.masks.astype(np.int64)).to(device),
+                 torch.from_numpy(level.ids.astype(np.int64)).to(device), mparams.fp_bases)
+        got, want = kfp.fingerprint(*fargs), ref.fingerprint_ref(*fargs)
+        require(equal(got[0], want[0]) and equal(got[1], want[1]),
+                f"serve: monitor fingerprints at level {level.k} != the plain version")
+    cparams, cstate = mon.init_monitor(MONITOR, device="cpu")
+    require(all(equal(x.cpu(), y) for x, y in zip(mparams, cparams)),
+            "serve: monitor hash parameters differ between the card and the CPU")
+    ccounters, cn = mon.monitor_update_local(MONITOR, cparams, cstate.counters[0], cstate.n[0],
+                                             prompts_np, cstate.step)
+    cest = mon.monitor_estimate(MONITOR, mon.MonitorState(ccounters[None], cn[None],
+                                                          cstate.step))
+    require(equal(counters.cpu(), ccounters) and equal(n.cpu(), cn),
+            "serve: monitor counters or n differ from the CPU run")
+    require(all(math.isclose(est["g"][k], cest["g"][k], rel_tol=1e-6, abs_tol=1e-6)
+                for k in est["g"]), f"serve: monitor g {est['g']} != the CPU run's {cest['g']}")
+    dup_pairs = (est["g"][MONITOR.d] - B) / 2
+    true_pairs = sum(int(np.array_equal(prompts_np[i], prompts_np[j]))
+                     for i in range(B) for j in range(i + 1, B))
+    log(f"serve: SJPC request monitor ~{dup_pairs:.2f} duplicate prompt pairs (true: "
+        f"{true_pairs}); records equal np_records_from_tokens, fingerprints equal the plain "
+        f"version, counters and n equal the CPU run's, g within 1e-6 of it ({cest['g']})")
+
+    # the same serving, timed step by step
+    prefill = serve.make_prefill(cfg, dims, compute_dtype=torch.float32)
+    decode = serve.make_decode_step(cfg, dims, compute_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats(device)
+    prefill_s, (logits, pcache) = synced_s(lambda: prefill(params, prompts))
+    log_profile("prefill (a second one)", *profiled(lambda: prefill(params, prompts))[:3])
+    cache = serve._rebase_cache(M.init_cache(cfg, dims, B, S + steps, dtype=torch.float32,
+                                             device=device), pcache, S)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    out, step_s = [tok], []
+    for _ in range(steps - 1):
+        seconds, (step_logits, cache) = synced_s(lambda: decode(params, tok, cache))
+        step_s.append(seconds)
+        tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out.append(tok)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    log_profile("one more decode step", *profiled(lambda: decode(params, tok, cache))[:3])
+    del cache
+    require(torch.equal(torch.cat(out, dim=1), tokens), "serve: stepwise tokens != greedy_generate")
+    require(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (B, 1, dims.vocab),
+            "serve: prefill logits")
+    decode_ms = float(np.median(step_s)) * 1e3
+    log(f"serve: prefill {prefill_s * 1e3:.1f} ms ({B * S / prefill_s:.0f} prompt tokens/s); "
+        f"decode {decode_ms:.3f} ms per step, median of {len(step_s)} "
+        f"({B / (decode_ms / 1e3):.1f} tokens/s); host clock around synchronised work; "
+        f"peak device memory {peak_gb:.1f} GB")
+
+    # the plain path on the card
+    with oracle_calls():
+        ref_s, ref_tokens = synced_s(lambda: serve.greedy_generate(params, cfg, dims, prompts,
+                                                                   steps, impl="torch_ref"))
+        ref_prefill_s, (ref_logits, ref_cache) = synced_s(
+            lambda: M.prefill(params, cfg, dims, prompts, compute_dtype=torch.float32,
+                              impl="torch_ref"))
+    rel = float((logits - ref_logits).abs().max() / ref_logits.abs().max())
+    require(torch.equal(tokens, ref_tokens), "serve: tokens != the torch_ref call's")
+    require(rel <= LOGITS_RTOL, f"serve: prefill logits differ by {rel} of max |logit|")
+    # every layer's K and V of every prompt position: layer l's come from
+    # the attention outputs of layers < l at every query row, which the
+    # last-token logits alone do not see
+    kv_rel = []
+    for got, want in zip(tree_leaves(pcache.groups), tree_leaves(ref_cache.groups)):
+        require(got.shape == want.shape, "serve: prefill cache shapes")
+        kv_rel += ((got - want).abs().amax(dim=(1, 2, 3, 4))
+                   / want.abs().amax(dim=(1, 2, 3, 4))).tolist()
+    del pcache, ref_cache
+    require(max(kv_rel) <= KV_RTOL, f"serve: prefill K/V differ by {max(kv_rel)} of max |x|")
+    log(f"serve: tokens equal the impl=\"torch_ref\" call's; prefill last-token logits within "
+        f"{rel:.3g} of max |logit| (limit {LOGITS_RTOL}); the {len(kv_rel)} per-layer K and V "
+        f"caches within {max(kv_rel):.3g} of max |x| (limit {KV_RTOL}; the last layer's V "
+        f"{kv_rel[-1]:.3g}); plain path greedy_generate {ref_s:.3f} s, prefill "
+        f"{ref_prefill_s * 1e3:.1f} ms")
+    return {"prefill_ms": prefill_s * 1e3, "decode_ms": decode_ms, "launches": counts}
+
+
+def flash_row(device, by_path, flush) -> dict:
+    """The flash_attention row at the serve phase's layer shape, f32 (the
+    path's dtype), plus the bf16 numbers, printed."""
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    shape = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 2, 128)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attention_case(rng, device, *shape, dtype=dtype)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def kernel():
+            return kfa.flash_attention(q, k, v, causal=True)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, causal=True, block_q=SERVE_CHUNK,
+                                           block_k=SERVE_CHUNK)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                    enable_gqa=True)
+
+        def library_expanded():
+            # the memory-efficient backend takes f32, but not grouped heads
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return torch.nn.functional.scaled_dot_product_attention(qt, ke, ve,
+                                                                        is_causal=True)
+
+        p1, _ = device_ms(plain, 2, flush)
+        k1, _ = device_ms(kernel, 3, flush)
+        k2, _ = device_ms(kernel, 3, flush)
+        p2, _ = device_ms(plain, 2, flush)
+        lib = device_ms(library, 3, flush)[0]
+        ke, ve = (x.repeat_interleave(16 // 2, dim=1) for x in (kt, vt))
+        lib_expanded = device_ms(library_expanded, 3, flush)[0]
+        del ke, ve
+        err = check_flash(q, k, v, True, SERVE_CHUNK, SERVE_CHUNK, f"flash_attention {dtype}")
+        lib_err = float((library().transpose(1, 2).float() - plain().float()).abs().max())
+        nbytes, flops = attention_work(q, k, causal=True)
+        peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_TENSOR_FLOPS_PER_S
+        b_ms, b_by = bound_ms(nbytes, flops, peak)
+        log(f"time flash_attention {dtype} {shape}: kernel {k1:.3f}/{k2:.3f} ms, plain "
+            f"{p1:.3f}/{p2:.3f} ms, library (scaled_dot_product_attention, enable_gqa) "
+            f"{lib:.3f} ms (its max abs err {lib_err:.3g}), the memory-efficient backend on "
+            f"KV heads repeated 8x {lib_expanded:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
+            f"{nbytes} B, {flops} flops at {peak / 1e12:.1f} TFLOP/s); kernel at "
+            f"{flops / (min(k1, k2) / 1e3) / 1e12:.2f} TFLOP/s")
+        out[dtype] = {"name": "flash_attention", "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                      "replaces": REPLACES["flash_attention"],
+                      "launches": sum(counts["flash_attention"] for counts in by_path.values()),
+                      "launches_by_path": {path: counts["flash_attention"]
+                                           for path, counts in by_path.items()},
+                      "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                      "library": "scaled_dot_product_attention(is_causal=True, "
+                                 "enable_gqa=True), same dtype",
+                      "library_best_ms": lib_expanded,
+                      "library_best": "scaled_dot_product_attention, memory-efficient "
+                                      "backend, on K/V heads repeated 8x beforehand (the "
+                                      "repeat not timed)"}
+        del q, k, v, qt, kt, vt
+    return out[torch.float32]
+
+
 def estimator_kernel_args(device, cfg, params, est_out):
     """The estimator path's shapes for the three kernels it adds:
     fused_pairs over the 1,024-tenant reservoir query, sketch_update of one
@@ -782,6 +1160,7 @@ def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
             f"per call), plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}: {nbytes} B, {ops} int ops)"
             + (f", library {lib:.4f} ms" if lib is not None else ""))
+    rows.append(flash_row(device, by_path, flush))
     return rows
 
 
@@ -834,7 +1213,9 @@ def main() -> int:
     by_path = {"stream": read_counts("stream", ("fused_ingest", "fingerprint", "fused_query"))}
     reset_counts()
     est_out = phase_estimators(device, cfg)
-    by_path["estimators"] = read_counts("estimators", tuple(KERNELS))
+    by_path["estimators"] = read_counts("estimators", tuple(k for k in KERNELS
+                                                             if k != "flash_attention"))
+    by_path["serve"] = phase_serve(device)["launches"]
 
     rows = phase_numbers(device, cfg, params, records, tenants, by_path, est_out)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

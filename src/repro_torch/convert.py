@@ -1,9 +1,10 @@
-"""Carry SJPC parameters and estimator states between this package and
-numpy.
+"""Carry SJPC parameters, estimator states and model parameters between
+this package and numpy.
 
 The JAX package's states hold uint32 / int32 / float32 arrays; as numpy
 arrays they come in here and go back out, so both packages can hold the
-same sketch or sample.  uint32 leaves (records) are int64 tensors here.
+same sketch, sample or model.  uint32 leaves (records) are int64 tensors
+here.
 """
 from __future__ import annotations
 
@@ -60,3 +61,14 @@ def sample_state_to_numpy(state) -> tuple:
     return tuple(leaf.cpu().numpy().astype(np.uint32 if _is_items(field) else np.int32)
                  for field, leaf in zip(state._fields, state))
 
+
+def model_params_from_numpy(tree, device=None):
+    """The JAX package's ``strip_p(params)`` tree with numpy leaves (nested
+    dicts, lists and tuples) -> the same tree of tensors on ``device``
+    (None: the CUDA card), dtypes kept."""
+    device = platform.resolve(device)
+    if isinstance(tree, dict):
+        return {k: model_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(model_params_from_numpy(v, device) for v in tree)
+    return torch.from_numpy(np.array(tree)).to(device)

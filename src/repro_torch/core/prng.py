@@ -101,10 +101,17 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
+def _draw_device(key: torch.Tensor, device) -> torch.device:
+    """``device``, or the key's own device when it is None."""
+    return key.device if device is None else torch.device(device)
+
+
+def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """32 random bits per element (int64 in [0, 2^32)), ``jax.random.bits``
-    with uint32.  Keys (..., 2) give (..., *shape)."""
+    with uint32.  Keys (..., 2) give (..., *shape), on ``device`` (None:
+    the key's device)."""
     shape = tuple(shape)
+    device = _draw_device(key, device)
     if key.ndim > 1:
         key = key.to(device)
     k1, k2 = _words(key, 1)
@@ -113,8 +120,9 @@ def random_bits(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
     return torch.bitwise_xor(b1, b2).reshape(tuple(key.shape[:-1]) + shape)
 
 
-def uniform(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: float32 in [0, 1)."""
+def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1), on ``device``
+    (None: the key's device)."""
     bits = random_bits(key, shape, device)
     float_bits = torch.bitwise_or(bits >> 9, 0x3F800000).to(torch.int32)
     return float_bits.view(torch.float32) - 1.0
@@ -130,7 +138,7 @@ def mul_u32(a: torch.Tensor, b) -> torch.Tensor:
     return torch.bitwise_and(lo + hi, _MASK32)
 
 
-def randint(key: torch.Tensor, shape, minval, maxval, device="cpu") -> torch.Tensor:
+def randint(key: torch.Tensor, shape, minval, maxval, device=None) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` with int32 output,
     bit for bit (jax 0.9, ``jax/_src/random.py:_randint``).
 
@@ -142,8 +150,10 @@ def randint(key: torch.Tensor, shape, minval, maxval, device="cpu") -> torch.Ten
     ``(2^16 mod span)^2`` in uint32, which wraps to 0 for spans above
     2^16).  ``minval``/``maxval`` are ints or tensors that broadcast to
     the output, (..., *shape) for keys (..., 2); they must lie in the
-    int32 range.  The arithmetic is int64 with 32-bit masks."""
+    int32 range.  The arithmetic is int64 with 32-bit masks.  The draws
+    land on ``device`` (None: the key's device)."""
     shape = tuple(shape)
+    device = _draw_device(key, device)
     if key.ndim > 1:
         key = key.to(device)
     out_shape = tuple(key.shape[:-1]) + shape

@@ -162,13 +162,15 @@ def descending_ranks(scores: torch.Tensor) -> torch.Tensor:
 
 
 def sample_combo_weights(key: torch.Tensor, batch: int, num_combos: int, ratio: float,
-                         device="cpu") -> torch.Tensor:
-    """(batch, M) {0,1} int32 weights: per-record uniform l_i-subset.
+                         device=None) -> torch.Tensor:
+    """(batch, M) {0,1} int32 weights: per-record uniform l_i-subset, on
+    ``device`` (None: the key's device).
 
     l_i = floor(r*M) + Bernoulli(frac(r*M)) per record (Alg. 1 lines 9-11).
     ratio == 1 short-circuits to all-ones.
     """
     lo, frac = sample_size_parts(num_combos, ratio)
+    device = key.device if device is None else torch.device(device)
     if lo >= num_combos and frac == 0.0:
         return torch.ones((batch, num_combos), dtype=torch.int32, device=device)
     k_sel, k_round = prng.split(key)

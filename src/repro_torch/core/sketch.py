@@ -15,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import platform
 from .hashing import cw_hash_pair, hash_bucket, hash_sign, random_field_elements
 
 
@@ -33,8 +34,10 @@ class SketchParams(NamedTuple):
 
 
 def make_sketch_params(rng: np.random.Generator, depth: int, *, stack: tuple = (),
-                       device="cpu") -> SketchParams:
-    """The JAX package's draws: bucket coefficients, then sign coefficients."""
+                       device=None) -> SketchParams:
+    """The JAX package's draws: bucket coefficients, then sign coefficients,
+    on ``device`` (None: the CUDA card, :func:`platform.resolve`)."""
+    device = platform.resolve(device)
     shape = tuple(stack) + (depth, 2, 4)
     bucket = random_field_elements(rng, shape).astype(np.int64)
     sign = random_field_elements(rng, shape).astype(np.int64)
@@ -42,7 +45,10 @@ def make_sketch_params(rng: np.random.Generator, depth: int, *, stack: tuple = (
                         torch.from_numpy(sign).to(device))
 
 
-def empty_counters(depth: int, width: int, *, stack: tuple = (), device="cpu") -> torch.Tensor:
+def empty_counters(depth: int, width: int, *, stack: tuple = (), device=None) -> torch.Tensor:
+    """Zero (..., t, w) int32 counters on ``device`` (None: the CUDA card,
+    :func:`platform.resolve`)."""
+    device = platform.resolve(device)
     assert width & (width - 1) == 0, "sketch width must be a power of two"
     return torch.zeros(tuple(stack) + (depth, width), dtype=torch.int32, device=device)
 

@@ -1,0 +1,59 @@
+"""Flash attention (forward): the CUDA kernel ``csrc/flash_attention.cu``
+and its wrapper.
+
+Replaces the Pallas TPU kernel ``flash_attention_pallas`` (and its
+model-layout wrapper ``flash_attention``) of the JAX package.  This is the
+op's ``cuda_sm90`` tier in the kernel registry (``kernels/ops.py``); its
+oracle is :func:`.ref.flash_attention_ref`.  It takes CUDA tensors only,
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+launches = 0   # kernel launches since the last reset
+
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+Q_TILE = 64                 # query rows per CTA (csrc/flash_attention.cu)
+MAX_Q_TILES = 65535         # the grid's y limit
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Skv, KV, hd), float32 or bfloat16, H a
+    multiple of KV -> (B, Sq, H, hd) in q's dtype.  Causal masking is
+    top-left aligned (query i sees keys 0..i).
+
+    ``block_q``/``block_k`` are the oracle's tiles, taken for the
+    registry's common signature: the kernel tiles by 64 x 64 whatever they
+    are, and agrees with the oracle within 2e-5 (f32) at any of them.  Any
+    Sq and Skv are accepted (ragged tiles are masked)."""
+    global launches
+    device = q.device
+    _build.require_cuda("flash_attention", device)
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS}")
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} KV heads")
+    if -(-Sq // Q_TILE) > MAX_Q_TILES:
+        raise ValueError(f"Sq = {Sq} exceeds {MAX_Q_TILES * Q_TILE}")
+    _build.require("q", q, q.dtype, (B, Sq, H, hd), device)
+    _build.require("k", k, q.dtype, (B, Skv, KV, hd), device)
+    _build.require("v", v, q.dtype, (B, Skv, KV, hd), device)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _build.launch("flash_attention", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), B, H, KV, Sq, Skv, hd, DTYPES[q.dtype], int(bool(causal)))
+    launches += 1
+    return out

@@ -1,5 +1,5 @@
-"""Public entry points of the SJPC kernels, dispatched through the kernel
-registry (:mod:`.registry`).
+"""Public entry points of the port's kernels (the SJPC kernels and flash
+attention), dispatched through the kernel registry (:mod:`.registry`).
 
 The same names and positional arguments as the JAX package's
 ``kernels.ops``.  Every op registers two implementations: ``torch_ref``
@@ -22,6 +22,7 @@ from .. import platform
 from ..core.hashing import as_field_tensor
 from ..obs.metrics import default_registry
 from . import fingerprint as _fingerprint
+from . import flash_attention as _flash_attention
 from . import fused_ingest as _fused_ingest
 from . import fused_pairs as _fused_pairs
 from . import fused_query as _fused_query
@@ -144,6 +145,35 @@ def fused_pairs(items, valid, *, impl=None):
     return out.reshape(lead + (d + 1,))
 
 
+def flash_attention(q, k, v, *, causal=True, block_q=512, block_k=512, impl=None):
+    """Online-softmax attention in the model's layout: q (B, Sq, H, hd),
+    k/v (B, Skv, KV, hd), float32 or bfloat16 -> (B, Sq, H, hd) in q's
+    dtype; query head h reads KV head h // (H // KV); causal masking is
+    top-left aligned.
+
+    The JAX package's preconditions hold on both tiers and raise
+    ``ValueError``: after ``min(block, length)``, Sq is a multiple of
+    ``block_q`` and Skv of ``block_k``, and H a multiple of KV.  The plain
+    version computes in those blocks; the kernel chooses its own tiles.
+    """
+    device = _device(q, k, v)
+    q, k, v = (torch.as_tensor(x).to(device).contiguous() for x in (q, k, v))
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
+                         f"expected (B, Sq, H, hd) and two equal (B, Skv, KV, hd)")
+    b, sq, h, hd = q.shape
+    if k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    skv, kv = k.shape[1], k.shape[2]
+    if kv == 0 or h % kv:
+        raise ValueError(f"{h} query heads do not group over {kv} KV heads")
+    block_q, block_k = min(block_q, sq), min(block_k, skv)
+    if block_q <= 0 or block_k <= 0 or sq % block_q or skv % block_k:
+        raise ValueError(f"blocks ({block_q}, {block_k}) do not tile ({sq}, {skv})")
+    run = _dispatch("flash_attention", device, impl)
+    return run(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
+
+
 def make_sjpc_update_fn(*, impl=None):
     """An ``update_fn`` for :func:`repro_torch.core.sjpc.update` that runs
     the ``sketch_update`` op."""
@@ -153,12 +183,13 @@ def make_sjpc_update_fn(*, impl=None):
 
 
 # ---------------------------------------------------------------------------
-# registrations: six ops, each a kernel and its plain version
+# registrations: seven ops, each a kernel and its plain version
 # ---------------------------------------------------------------------------
 
 def _register_all(reg=_REG) -> None:
     for op, oracle, kernel in (
             ("fingerprint", ref.fingerprint_ref, _fingerprint.fingerprint),
+            ("flash_attention", ref.flash_attention_ref, _flash_attention.flash_attention),
             ("fused_ingest", ref.fused_ingest_ref, _fused_ingest.fused_ingest),
             ("fused_pairs", ref.fused_pairs_ref, _fused_pairs.fused_pairs),
             ("fused_query", ref.fused_query_ref, _fused_query.fused_query),

@@ -92,3 +92,15 @@ def fused_pairs_ref(items, valid):
         out[lo:lo + step] = torch.stack([(match == k).sum(dim=(1, 2)) for k in range(d + 1)],
                                         dim=1).to(torch.int32)
     return out
+
+
+def flash_attention_ref(q, k, v, *, causal=True, block_q=512, block_k=512):
+    """Online-softmax chunked attention, model layout: q (B, Sq, H, hd),
+    k/v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype.
+
+    ``models.attention.chunked_attention`` is the semantic ground truth of
+    the flash kernel, as in the JAX package (<= 1e-6 against it in f32).
+    Imported lazily so that importing the kernels package never pulls in
+    the models tree."""
+    from ..models.attention import chunked_attention
+    return chunked_attention(q, k, v, causal=causal, q_chunk=block_q, kv_chunk=block_k)

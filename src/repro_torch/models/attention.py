@@ -1,0 +1,183 @@
+"""GQA attention: full, chunked online-softmax, and KV-cache decode.
+
+The JAX package's ``models/attention.py`` in PyTorch, in its grouped query
+layout (KV heads stay a separate dimension; they are never repeated).
+Sequences longer than :data:`CHUNKED_THRESHOLD` go where the JAX package
+runs :func:`chunked_attention`: to ``kernels.ops.flash_attention``, whose
+plain version *is* :func:`chunked_attention` and whose CUDA kernel runs on
+the card.  Shorter sequences and decode run :func:`full_attention` in
+plain PyTorch, as the JAX package runs them outside any Pallas kernel.
+
+Every dot product is taken in float32 (bf16 operands are widened first,
+which is exact), as the JAX package asks with ``preferred_element_type``.
+Cross-attention (``kv_override``, ``rope=False``) belongs to the
+encoder-decoder slice (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+from .config import Dims
+from .layers import apply_rope, dense_init, zeros_init
+
+NEG_INF = -1e30
+
+
+def init_attention(generator: torch.Generator, dims: Dims, *, device) -> dict:
+    cfg = dims.cfg
+    d, h, kv, hd = cfg.d_model, dims.heads, dims.kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(generator, (d, h, hd), device=device),
+        "wk": dense_init(generator, (d, kv, hd), device=device),
+        "wv": dense_init(generator, (d, kv, hd), device=device),
+        "wo": dense_init(generator, (h, hd, d), scale=1.0 / np.sqrt(h * hd), device=device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = zeros_init((h, hd), device=device)
+        p["bk"] = zeros_init((kv, hd), device=device)
+        p["bv"] = zeros_init((kv, hd), device=device)
+    return p
+
+
+def _project_q(params, x, positions, theta):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"]
+    return apply_rope(q, positions, theta)
+
+
+def _project_kv(params, x, positions, theta):
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if "bk" in params:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return apply_rope(k, positions, theta), v
+
+
+def _grouped(q, kv_heads):
+    """(B, S, H, hd) -> (B, S, KV, G, hd)."""
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, kv_heads, h // kv_heads, hd)
+
+
+def full_attention(q, k, v, *, causal: bool, q_offset=0, kv_valid=None,
+                   probs_dtype=torch.float32):
+    """Dense attention.  q (B,Sq,H,hd); k,v (B,Skv,KV,hd).
+
+    kv_valid: optional (B, Skv) bool mask of valid cache slots.
+    q_offset: absolute position of q[:, 0] (for causal masking vs a cache).
+    probs_dtype: the type the probabilities are rounded to before the
+    product with V; the softmax itself is float32.
+    """
+    kv_h = k.shape[2]
+    qg = _grouped(q, kv_h)                                # (B,Sq,KV,G,hd)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    sq, skv = scores.shape[-2], scores.shape[-1]
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        scores = torch.where(qpos >= kpos, scores, NEG_INF)
+    if kv_valid is not None:
+        scores = torch.where(kv_valid[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(probs_dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(torch.float32),
+                       v.to(probs_dtype).to(torch.float32))
+    b, sq_, kvh, g, hd = out.shape
+    return out.reshape(b, sq_, kvh * g, hd).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 2048,
+                      kv_chunk: int = 2048, probs_dtype=torch.float32):
+    """Flash-style online-softmax attention, O(S * chunk) memory: the
+    plain version of the ``flash_attention`` kernel.  Loops over
+    (q-chunk, kv-chunk) tiles where the JAX package scans; like it, it
+    computes every tile, the causally masked ones included."""
+    b, sq, h, hd = q.shape
+    skv, kv_h = k.shape[1], k.shape[2]
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    if q_chunk <= 0 or kv_chunk <= 0 or sq % q_chunk or skv % kv_chunk:
+        raise ValueError(f"chunks ({q_chunk}, {kv_chunk}) do not tile ({sq}, {skv})")
+    nq, nk = sq // q_chunk, skv // kv_chunk
+    g = h // kv_h
+    scale = 1.0 / np.sqrt(hd)
+    dev = q.device
+
+    qg = _grouped(q, kv_h).reshape(b, nq, q_chunk, kv_h, g, hd).to(torch.float32)
+    kc = k.reshape(b, nk, kv_chunk, kv_h, hd).to(torch.float32)
+    vc = v.reshape(b, nk, kv_chunk, kv_h, hd).to(probs_dtype).to(torch.float32)
+
+    outs = []
+    for qi in range(nq):
+        qblock = qg[:, qi]                                # (B, Cq, KV, G, hd)
+        m = torch.full((b, kv_h, g, q_chunk), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, kv_h, g, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, kv_h, g, q_chunk, hd), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            s = torch.einsum("bqkgh,bskh->bkgqs", qblock, kc[:, ki]) * scale
+            if causal:
+                qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)[:, None]
+                kpos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)[None, :]
+                s = torch.where(qpos >= kpos, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # guard fully-masked rows (m_new stays at NEG_INF)
+            p = torch.exp(s - m_new[..., None])
+            p = torch.where((m_new > 0.5 * NEG_INF)[..., None], p, 0.0)
+            alpha = torch.where(m > 0.5 * NEG_INF, torch.exp(m - m_new), 0.0)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskh->bkgqh", p.to(probs_dtype).to(torch.float32), vc[:, ki])
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])   # (B,KV,G,Cq,hd)
+    # (nq, B, KV, G, Cq, hd) -> (B, nq, Cq, KV, G, hd) -> (B, S, H, hd)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5)
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+CHUNKED_THRESHOLD = 8192
+
+
+def attention_block(params, x, dims: Dims, positions, *, causal=True, chunk: int = 2048,
+                    impl: str | None = None):
+    """Full prefill attention over x (B, S, d).  Returns (out, (k, v)).
+
+    Sequences longer than :data:`CHUNKED_THRESHOLD` run
+    ``ops.flash_attention`` with ``chunk`` as its q/kv tiles (``impl``
+    names its implementation; None goes by the device); shorter ones
+    :func:`full_attention`.
+    """
+    cfg = dims.cfg
+    q = _project_q(params, x, positions, cfg.rope_theta)
+    k, v = _project_kv(params, x, positions, cfg.rope_theta)
+    if x.shape[1] > CHUNKED_THRESHOLD:
+        out = ops.flash_attention(q, k, v, causal=causal, block_q=chunk, block_k=chunk,
+                                  impl=impl)
+    else:
+        out = full_attention(q, k, v, causal=causal)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
+
+
+def decode_attention_block(params, x, dims: Dims, cache_k, cache_v, lens):
+    """One-token decode against a cache.
+
+    x: (B, 1, d); cache_k/v: (B, S_max, KV, hd); lens: (B,) current lengths.
+    Writes the new token's K/V into the caches **in place** (the JAX
+    package returns updated copies) and returns (out (B,1,d), cache_k,
+    cache_v).
+    """
+    cfg = dims.cfg
+    b, smax = cache_k.shape[0], cache_k.shape[1]
+    positions = lens[:, None]                                     # (B, 1)
+    q = _project_q(params, x, positions, cfg.rope_theta)
+    k_new, v_new = _project_kv(params, x, positions, cfg.rope_theta)
+    batch_idx = torch.arange(b, device=x.device)
+    cache_k[batch_idx, lens] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[batch_idx, lens] = v_new[:, 0].to(cache_v.dtype)
+    valid = torch.arange(smax, device=x.device)[None, :] <= lens[:, None]
+    out = full_attention(q, cache_k, cache_v, causal=False, kv_valid=valid)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache_k, cache_v

@@ -1,0 +1,199 @@
+"""Arch config -> init, prefill and decode, layer group by layer group.
+
+The JAX package's ``models/model.py`` for the serving path.  Layers with
+identical structure form a *group* whose parameters are stacked on a
+leading layer axis, as the JAX package stacks them for ``lax.scan``; here
+a Python loop walks the stack.  The parameter tree is the JAX package's
+after ``strip_p``: ``{"embed", "final_norm", "groups": [group][i][...]}``
+with a leading layer axis on every group leaf.
+
+Public entry points (cfg/dims describe the model):
+
+    init_params(generator, cfg, dims, device=None) -> params
+    init_cache(cfg, dims, batch, max_len, ...)     -> Cache
+    prefill(params, cfg, dims, tokens, ...)        -> (logits_last, Cache)
+    decode_step(params, cfg, dims, token, cache)   -> (logits, Cache)
+
+``forward``, ``lm_loss`` and rematerialisation belong to the training
+slice, the encoder to the encoder-decoder slice (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from .. import platform
+from . import blocks
+from .config import ArchConfig, Dims, _layer_list
+from .layers import dense_init, embed, init_embedding, init_rmsnorm, rmsnorm
+
+# ---------------------------------------------------------------------------
+# Layer grouping and tree helpers
+# ---------------------------------------------------------------------------
+
+
+def layer_groups(cfg: ArchConfig) -> list[tuple[tuple, int]]:
+    """[(period_specs, repeat_count)] -- consecutive equal periods merge."""
+    specs = _layer_list(cfg)
+    period = cfg.period
+    if len(specs) % period:
+        raise ValueError(f"{cfg.name}: {len(specs)} layers are not whole periods of {period}")
+    periods = [tuple(specs[i * period:(i + 1) * period])
+               for i in range(len(specs) // period)]
+    groups: list[tuple[tuple, int]] = []
+    for p in periods:
+        if groups and groups[-1][0] == p:
+            groups[-1] = (p, groups[-1][1] + 1)
+        else:
+            groups.append((p, 1))
+    return groups
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _stack(trees: list):
+    """Trees of equal structure -> one tree with a leading stacked axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([t[i] for t in trees]) for i in range(len(first)))
+    return torch.stack(trees)
+
+
+def _layer(tree, index: int):
+    """The ``index``-th layer of a stacked tree (views, no copies)."""
+    return _tree_map(lambda x: x[index], tree)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_params(generator: torch.Generator, cfg: ArchConfig, dims: Dims, device=None) -> dict:
+    """Random float32 parameters drawn from ``generator`` (on its device),
+    placed on ``device`` (None: the CUDA card)."""
+    device = platform.resolve(device)
+    if cfg.is_encdec:
+        raise NotImplementedError("encoder-decoder models come with their slice "
+                                  "(ROADMAP queue 1, item 12)")
+    params: dict[str, Any] = {
+        "embed": init_embedding(generator, dims.vocab, cfg.d_model, device=device),
+        "final_norm": init_rmsnorm(cfg.d_model, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(generator, (cfg.d_model, dims.vocab), device=device)
+    groups = []
+    for pspec, count in layer_groups(cfg):
+        layers = [tuple(blocks.init_layer(generator, dims, spec, device=device)
+                        for spec in pspec) for _ in range(count)]
+        groups.append(_stack(layers))
+    params["groups"] = groups
+    return params
+
+
+def _cast(tree, dtype):
+    """float32 leaves to ``dtype`` (no copy when it is float32)."""
+    return _tree_map(lambda x: x.to(dtype) if x.dtype == torch.float32 else x, tree)
+
+
+def _positions(tokens):
+    b, s = tokens.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+
+
+def _logits(wp, cfg: ArchConfig, x):
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, wp["embed"])
+    return torch.einsum("bsd,dv->bsv", x, wp["lm_head"])
+
+
+def _run_groups(params, cfg, dims, x, positions, *, causal, collect_cache=False,
+                attn_chunk=2048, impl=None):
+    """Every layer of every group in order.  Returns (x, caches|None),
+    caches stacked per group as the parameters are."""
+    caches = [] if collect_cache else None
+    for (pspec, count), gparams in zip(layer_groups(cfg), params["groups"]):
+        outs = []
+        for layer in range(count):
+            pslice = _layer(gparams, layer)
+            layer_out = []
+            for i, spec in enumerate(pspec):
+                x, cache_out = blocks.apply_layer(pslice[i], x, dims, spec,
+                                                  positions=positions, causal=causal,
+                                                  attn_chunk=attn_chunk, impl=impl)
+                layer_out.append(cache_out)
+            if collect_cache:
+                outs.append(tuple(layer_out))
+        if collect_cache:
+            caches.append(_stack(outs))
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+class Cache(NamedTuple):
+    """Decode state.  groups: per layer group, the stacked per-layer caches."""
+    groups: tuple
+    lens: torch.Tensor            # (B,) int32 tokens already in cache
+
+
+def init_cache(cfg: ArchConfig, dims: Dims, batch: int, max_len: int, *,
+               dtype=torch.bfloat16, device=None) -> Cache:
+    device = platform.resolve(device)
+    groups = tuple(
+        tuple(blocks.init_layer_cache(dims, spec, batch, max_len, stack=(count,), dtype=dtype,
+                                      device=device) for spec in pspec)
+        for pspec, count in layer_groups(cfg))
+    return Cache(groups=groups, lens=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def prefill(params, cfg: ArchConfig, dims: Dims, tokens, *, compute_dtype=torch.bfloat16,
+            attn_chunk: int = 2048, impl: str | None = None):
+    """Process a full prompt; returns (last-token logits (B, 1, vocab)
+    float32, Cache).
+
+    ``tokens`` (B, S) go to the parameters' device.  ``impl`` names the
+    implementation of the flash-attention op of sequences longer than
+    ``attention.CHUNKED_THRESHOLD`` (None: by device).  The returned
+    attention caches have length S; ``launch.serve`` re-bases them into a
+    max_len cache.
+    """
+    wp = _cast(params, compute_dtype)
+    tokens = torch.as_tensor(tokens, device=wp["embed"].device)
+    x = embed(wp["embed"], tokens)
+    x, caches = _run_groups(wp, cfg, dims, x, _positions(tokens), causal=True,
+                            collect_cache=True, attn_chunk=attn_chunk, impl=impl)
+    x = rmsnorm(wp["final_norm"], x[:, -1:], cfg.rms_eps)
+    b, s = tokens.shape
+    cache = Cache(groups=tuple(caches),
+                  lens=torch.full((b,), s, dtype=torch.int32, device=tokens.device))
+    return _logits(wp, cfg, x).to(torch.float32), cache
+
+
+def decode_step(params, cfg: ArchConfig, dims: Dims, token, cache: Cache, *,
+                compute_dtype=torch.bfloat16):
+    """One token for every sequence.  token (B, 1) -> (logits (B, 1, vocab)
+    float32, Cache).  The cache's K/V are updated in place; the returned
+    Cache holds the same tensors and ``lens + 1``.  Decode attention is
+    plain PyTorch (no kernel op), so there is no ``impl``."""
+    wp = _cast(params, compute_dtype)
+    token = torch.as_tensor(token, device=wp["embed"].device)
+    x = embed(wp["embed"], token)
+    for (pspec, count), gparams, gcache in zip(layer_groups(cfg), wp["groups"], cache.groups):
+        for layer in range(count):
+            pslice, cslice = _layer(gparams, layer), _layer(gcache, layer)
+            for i, spec in enumerate(pspec):
+                x, _ = blocks.decode_layer(pslice[i], x, dims, spec, cslice[i], cache.lens)
+    x = rmsnorm(wp["final_norm"], x, cfg.rms_eps)
+    return (_logits(wp, cfg, x).to(torch.float32),
+            Cache(groups=cache.groups, lens=cache.lens + 1))

@@ -188,3 +188,82 @@ def test_registry_resolves_cuda_tensors_to_the_kernels(cuda):
     out = ops.fused_pairs(items[:, None], valid[:, None])
     assert kfp2.launches == before + 1 and out.shape == (2, 1, 4)
     assert int(out[0, 0, 3]) == 20
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the dense serving path
+# ---------------------------------------------------------------------------
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import model as tM  # noqa: E402
+from repro_torch.models.config import compute_dims  # noqa: E402
+
+# The kernel and its plain version both compute in f32, in their own tiles
+# and order, within FLASH_F32_TOL there (the JAX package's flash-kernel
+# tolerance).  A bf16 output is that value rounded, so in bf16 they may
+# differ by one bf16 ulp of the plain value on top, and never by more than
+# 2e-2 (the JAX package's bf16 limit).
+FLASH_F32_TOL = 2e-5
+FLASH_BF16_TOL = 2e-2
+
+
+def assert_flash_close(got, want):
+    diff = (got.float() - want.float()).abs()
+    limit = torch.full_like(diff, FLASH_F32_TOL)
+    if want.dtype == torch.bfloat16:
+        _, e = torch.frexp(want.float())
+        limit += torch.ldexp(torch.ones_like(diff), e - 8) * (want != 0)
+        assert float(diff.max()) <= FLASH_BF16_TOL
+    assert not bool((diff > limit).any()), (float(diff.max()), int((diff > limit).sum()))
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd", [
+    (2, 64, 64, 4, 2, 16), (1, 128, 128, 8, 8, 32), (2, 64, 128, 4, 1, 16),
+    (1, 96, 96, 6, 3, 64),                                  # the JAX kernel test's grid
+    (1, 200, 200, 16, 2, 128), (2, 1000, 1000, 16, 2, 128),  # ragged tiles, GQA 8:1
+    (1, 64, 300, 8, 1, 128), (1, 4096, 4096, 16, 2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_equals_plain(cuda, b, sq, skv, h, kv, hd, dtype, causal):
+    rng = np.random.default_rng(sq * h + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
+               for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd)))
+    before = kfa.launches
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    assert kfa.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, block_q=sq, block_k=skv)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert_flash_close(got, want)
+    if causal:
+        torch.testing.assert_close(got[:, 0].float(), v[:, 0].repeat_interleave(h // kv, 1)
+                                   .float(), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 64, 4, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        kfa.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros((1, 64, 4, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        kfa.flash_attention(q, q[:, :, :2], q[:, :, :2])
+
+
+def test_chunked_prefill_on_the_card_equals_the_cpu(cuda, monkeypatch):
+    """The reduced qwen2.5-3b prefill through the flash branch (threshold
+    patched to 16): the kernel on the card against the plain version on
+    the CPU, logits within 1e-5 and one launch per layer."""
+    monkeypatch.setattr(tattn, "CHUNKED_THRESHOLD", 16)
+    cfg = configs.reduced("qwen2.5-3b")
+    dims = compute_dims(cfg)
+    params_c = tM.init_params(torch.Generator().manual_seed(0), cfg, dims, device="cpu")
+    params_g = tM._tree_map(lambda x: x.to(cuda), params_c)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(0, 256, size=(3, 64)))
+    before = kfa.launches
+    lg_g, _ = tM.prefill(params_g, cfg, dims, prompts, compute_dtype=torch.float32,
+                         attn_chunk=16)
+    assert kfa.launches == before + cfg.num_layers
+    lg_c, _ = tM.prefill(params_c, cfg, dims, prompts, compute_dtype=torch.float32,
+                         attn_chunk=16)
+    torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=1e-5, atol=1e-5)

@@ -44,7 +44,7 @@ def test_uniform_draws(seed, shape):
     key = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
     tkey = prng.fold_in(prng.PRNGKey(seed), 3)
     want = np.asarray(jax.random.uniform(key, shape))
-    got = prng.uniform(tkey, shape)
+    got = prng.uniform(tkey, shape, device="cpu")
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
     assert want.min() >= 0.0 and want.max() < 1.0
@@ -85,7 +85,7 @@ def test_sample_combo_weights(ratio, m):
         key = jax.random.fold_in(jax.random.PRNGKey(seed), 2)
         tkey = prng.fold_in(prng.PRNGKey(seed), 2)
         want = np.asarray(jproj.sample_combo_weights(key, batch, m, ratio))
-        got = tproj.sample_combo_weights(tkey, batch, m, ratio)
+        got = tproj.sample_combo_weights(tkey, batch, m, ratio, device="cpu")
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), want)
 
@@ -107,7 +107,7 @@ def test_randint_scalar_bounds(minval, maxval):
     wraps), near 2^31 and 2^32, and maxval <= minval (always minval)."""
     key = jax.random.fold_in(jax.random.PRNGKey(17), minval & 0xFFFF)
     want = np.asarray(jax.random.randint(key, (6, 9), minval, maxval))
-    got = prng.randint(_tkey(key), (6, 9), minval, maxval)
+    got = prng.randint(_tkey(key), (6, 9), minval, maxval, device="cpu")
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -121,7 +121,7 @@ def test_randint_array_maxval(shape):
     maxval.flat[:3] = (0, 1, 2**31 - 1)
     key = jax.random.PRNGKey(3)
     want = np.asarray(jax.random.randint(key, shape, 0, jnp.asarray(maxval)))
-    got = prng.randint(_tkey(key), shape, 0, torch.from_numpy(maxval))
+    got = prng.randint(_tkey(key), shape, 0, torch.from_numpy(maxval), device="cpu")
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -130,10 +130,11 @@ def test_randint_batched_keys_and_bounds():
     keys = jax.random.split(jax.random.PRNGKey(11), 5)
     maxval = jnp.asarray([1, 2, 1000, 2**31 - 1, 0], jnp.int32)
     want = np.asarray(jax.vmap(lambda k, m: jax.random.randint(k, (3, 4), 0, m))(keys, maxval))
-    got = prng.randint(_tkey(keys), (3, 4), 0, torch.from_numpy(np.array(maxval))[:, None, None])
+    got = prng.randint(_tkey(keys), (3, 4), 0, torch.from_numpy(np.array(maxval))[:, None, None],
+                       device="cpu")
     np.testing.assert_array_equal(got.numpy(), want)
     with pytest.raises(ValueError):
-        prng.randint(_tkey(keys[0]), (2,), 0, 2**31)
+        prng.randint(_tkey(keys[0]), (2,), 0, 2**31, device="cpu")
 
 
 def test_stacked_keys_fold_in_split_bits():
@@ -149,10 +150,10 @@ def test_stacked_keys_fold_in_split_bits():
     np.testing.assert_array_equal(prng.split(tkeys, 5).numpy(),
                                   np.asarray(jax.vmap(lambda k: jax.random.split(k, 5))(keys)))
     np.testing.assert_array_equal(
-        prng.random_bits(tkeys, (2, 3)).numpy(),
+        prng.random_bits(tkeys, (2, 3), device="cpu").numpy(),
         np.asarray(jax.vmap(lambda k: jax.random.bits(k, (2, 3)))(keys)))
     np.testing.assert_array_equal(
-        prng.uniform(tkeys, (6,)).numpy(),
+        prng.uniform(tkeys, (6,), device="cpu").numpy(),
         np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (6,)))(keys)))
     # one key broadcast against a data grid, as the ingest key grid does
     grid = np.arange(6, dtype=np.int32).reshape(2, 3)

@@ -22,8 +22,26 @@ from repro_torch.kernels.registry import (CUDA_SM90, IMPLS, TORCH_REF, KernelReg
 from repro_torch.obs.metrics import default_registry
 
 REG = kernel_registry()
-OPS = ("fingerprint", "fused_ingest", "fused_pairs", "fused_query", "sketch_moments",
-       "sketch_update")
+OPS = ("fingerprint", "flash_attention", "fused_ingest", "fused_pairs", "fused_query",
+       "sketch_moments", "sketch_update")
+# Every op's kernel equals its oracle bit for bit, except flash attention:
+# the kernel sums in its own tiles and order, within FLASH_F32_TOL of the
+# oracle in f32 (the JAX package's flash-kernel tolerance).  A bf16 output
+# is that value rounded, so in bf16 it may differ by one bf16 ulp of the
+# oracle's on top, and never by more than 2e-2 (the JAX package's bf16
+# limit).
+FLASH_F32_TOL = 2e-5
+FLASH_BF16_TOL = 2e-2
+
+
+def assert_flash_close(got, want):
+    diff = (got.float() - want.float()).abs()
+    limit = torch.full_like(diff, FLASH_F32_TOL)
+    if want.dtype == torch.bfloat16:
+        _, e = torch.frexp(want.float())
+        limit += torch.ldexp(torch.ones_like(diff), e - 8) * (want != 0)
+        assert float(diff.max()) <= FLASH_BF16_TOL
+    assert not bool((diff > limit).any()), (float(diff.max()), int((diff > limit).sum()))
 
 
 def _i64(a):
@@ -42,6 +60,16 @@ def _cases(op: str, rng):
         level = proj.lattice(5, 3)[0]
         return [(_i64(rng.integers(0, 2**32, size=(b, 5), dtype=np.uint64)),
                  _i64(level.masks), _i64(level.ids), params.fp_bases) for b in (1, 37)]
+    if op == "flash_attention":
+        out = []
+        for (b, sq, skv, h, kv, hd), dtype, causal in (
+                ((2, 64, 64, 4, 2, 16), torch.float32, True),
+                ((1, 96, 128, 16, 2, 128), torch.float32, False),
+                ((1, 128, 128, 8, 1, 64), torch.bfloat16, True)):
+            q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+                       for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd)))
+            out.append((q, k, v, causal))
+        return out
     if op == "fused_ingest":
         pad = proj.padded_lattice(5, 3)
         out = []
@@ -64,7 +92,7 @@ def _cases(op: str, rng):
     assert op == "sketch_update"
     out = []
     for n, t, w in ((1, 3, 128), (257, 2, 256)):
-        coeffs = sjpc.sk.make_sketch_params(rng, t)
+        coeffs = sjpc.sk.make_sketch_params(rng, t, device="cpu")
         out.append((_i32(rng.integers(-9, 9, size=(t, w))), _i64(rng.integers(0, P31, size=n)),
                     _i64(rng.integers(0, P31, size=n)), coeffs.bucket_coeffs,
                     coeffs.sign_coeffs, _i32(rng.integers(-2, 3, size=n))))
@@ -93,6 +121,13 @@ def test_impl_matches_its_oracle(op, name):
             pytest.skip("needs a CUDA device")
         device = torch.device("cuda")
     for args in _cases(op, np.random.default_rng(sum(map(ord, op)))):
+        if op == "flash_attention":
+            q, k, v, causal = args
+            got = entry.impl(name)(*_to((q, k, v), device), causal=causal, block_q=32, block_k=32)
+            want = entry.oracle(q, k, v, causal=causal, block_q=32, block_k=32)
+            assert got.dtype == want.dtype == q.dtype
+            assert_flash_close(got.cpu(), want)
+            continue
         got, want = entry.impl(name)(*_to(args, device)), entry.oracle(*args)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)

@@ -190,6 +190,24 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert platform.resolve("cpu") == torch.device("cpu")
 
 
+def test_helpers_follow_their_input_or_go_to_the_card(monkeypatch):
+    """A helper without a tensor input defaults to the card and raises
+    without one; a helper with a key draws on the key's device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.core import prng, projections, sketch
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sketch.empty_counters(3, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sketch.make_sketch_params(np.random.default_rng(0), 3)
+    assert sketch.empty_counters(3, 64, device="cpu").device == torch.device("cpu")
+    key = prng.PRNGKey(3)
+    keys = prng.split(key, 4)
+    for draw in (prng.random_bits(key, (5,)), prng.uniform(keys, (2,)),
+                 prng.randint(keys, (2,), 0, 7),
+                 projections.sample_combo_weights(key, 4, 6, 0.5)):
+        assert draw.device == key.device == torch.device("cpu")
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -206,7 +224,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"kernels/registry.py", "kernels/fused_pairs.py", "kernels/sketch_update.py",
             "kernels/sketch_moments.py", "obs/metrics.py", "service/ingest.py",
             "estimators/base.py", "estimators/uncertainty.py", "estimators/reservoir.py",
-            "estimators/lsh_ss.py", "estimators/sjpc_backend.py"} <= names
+            "estimators/lsh_ss.py", "estimators/sjpc_backend.py", "kernels/flash_attention.py",
+            "models/config.py", "models/layers.py", "models/attention.py", "models/blocks.py",
+            "models/model.py", "launch/serve.py", "configs/qwen2_5_3b.py",
+            "data/recordize.py", "sketchstream/monitor.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
