@@ -22,7 +22,9 @@ w=1024, t=3):
   prompts of 10,240 tokens (prompt 2 repeats prompt 0) through
   ``greedy_generate`` for 16 tokens -- every layer's prefill attention runs
   the ``flash_attention`` kernel -- and the SJPC request monitor over the
-  prompts (``fingerprint`` kernel).
+  prompts (``fingerprint`` kernel); then the same prompts through a bf16
+  prefill (``make_prefill`` at its default compute dtype), whose attention
+  runs the bf16 tensor-core kernel (``csrc/flash_attention_tc.cu``).
 
 Every result of a kernel path is compared with the same computation
 through the plain versions on the card (``impl="torch_ref"``); LSH-SS,
@@ -31,9 +33,11 @@ kernel agrees with its plain version within 2e-5 in f32, and in bf16
 within one bf16 ulp of the plain value plus 2e-5 (and 2e-2 anywhere); the
 other kernels bit for bit.  The serve phase also holds the prefill's K/V
 cache of every layer against the plain path's, and the request monitor's
-fingerprints and counters against the plain versions.  The launch
-counts and ``kernel_dispatch_total`` show that every kernel call of those
-paths ran the hand-written kernel.  Prints a ``{"kernels": [...]}`` line
+fingerprints and counters against the plain versions; the bf16 prefill's
+last-token logits are no further from the f32 prefill's than the plain
+bf16 path's (within 1.25 times).  The launch counts and
+``kernel_dispatch_total`` show that every kernel call of those paths ran
+the hand-written kernel.  Prints a ``{"kernels": [...]}`` line
 with each kernel's launches, times and bound, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero; it exits 2 and prints no result without a CUDA device.
@@ -139,9 +143,18 @@ FLASH_F32_TOL = 2e-5
 FLASH_BF16_TOL = 2e-2
 MONITOR = mon.SketchMonitorConfig(d=4, s=4, ratio=1.0, width=1024, depth=3, shards=1)
 
+# The bf16 prefill's last-token logits, as max |x - f32 prefill's| / max
+# |f32 prefill's|: the kernel's may be at most this many times the plain
+# bf16 path's.
+BF16_PREFILL_RATIO = 1.25
+
 KERNELS = {"fused_ingest": kfi, "fingerprint": kfp, "fused_query": kfq,
            "fused_pairs": kpairs, "sketch_update": ksu, "sketch_moments": ksm,
            "flash_attention": kfa}
+# Every launch count: (module, attribute, the op whose dispatches it counts).
+# The flash_attention op has two kernels, f32 and bf16 (tensor cores).
+COUNTS = {name: (module, "launches", name) for name, module in KERNELS.items()}
+COUNTS["flash_attention_tc"] = (kfa, "tc_launches", "flash_attention")
 REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:87",
             "fused_ingest": "src/repro/kernels/fused_ingest.py:85",
             "fingerprint": "src/repro/kernels/fingerprint.py:41",
@@ -412,8 +425,14 @@ def flash_limit(want: torch.Tensor) -> torch.Tensor:
 
 def check_flash(q, k, v, causal, block_q, block_k, what) -> float:
     """The kernel against its plain version (in the given blocks), element
-    by element within :func:`flash_limit`; returns the max abs difference."""
+    by element within :func:`flash_limit`; returns the max abs difference.
+    f32 must launch the f32 kernel, bf16 the tensor-core kernel."""
+    before = (kfa.launches, kfa.tc_launches)
     got = kfa.flash_attention(q, k, v, causal=causal)
+    rose = (1, 0) if q.dtype == torch.float32 else (0, 1)
+    require((kfa.launches - before[0], kfa.tc_launches - before[1]) == rose,
+            f"{what}: launched {kfa.launches - before[0]} f32 / "
+            f"{kfa.tc_launches - before[1]} tensor-core kernels, expected {rose}")
     want = ref.flash_attention_ref(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
     require(got.dtype == want.dtype == q.dtype and got.shape == q.shape, f"{what}: dtype/shape")
     diff = (got.float() - want.float()).abs()
@@ -442,16 +461,33 @@ def check_flash_grid(rng, device) -> None:
     cases += [((1, sq, skv, 16, 2, 128), dtype, causal, sq, skv)
               for sq, skv in ((200, 200), (1000, 1000), (64, 300))
               for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)]
+    # the bf16 tensor-core kernel: every head dim, GQA groups 1, 2 and 8,
+    # single rows and ragged 128-row / 128-key tiles with Sq < Skv and
+    # Sq > Skv, causal or not
+    lengths = ((1, 1), (1, 63), (63, 129), (129, 63), (200, 200), (200, 1000), (1000, 200),
+               (1000, 1000))
+    cases += [((2, sq, skv, 8, (8, 4, 1)[(i + hd // 16) % 3], hd), torch.bfloat16, causal, sq,
+               skv)
+              for hd in kfa.HEAD_DIMS for i, (sq, skv) in enumerate(lengths)
+              for causal in (True, False)]
     for shape, dtype, causal, bq, bk in cases:
         q, k, v = attention_case(rng, device, *shape, dtype=dtype)
         err = check_flash(q, k, v, causal, bq, bk, f"flash_attention {shape} {dtype} "
                                                     f"causal={causal}")
         errs[dtype] = max(errs[dtype], err)
         n_checks += 1
-    q, k, v = attention_case(rng, device, 1, 32, 32, 2, 2, 16)
-    first = kfa.flash_attention(q, k, v, causal=True)[:, 0]
-    require(float((first - v[:, 0]).abs().max()) <= 1e-5, "flash_attention: first token != v[0]")
-    log(f"kernels: {n_checks + 1} flash_attention checks against the plain version, max abs "
+    # q scaled 8x: scores of tens, large steps of the running max
+    q, k, v = attention_case(rng, device, 1, 1000, 1000, 16, 2, 128, dtype=torch.bfloat16)
+    q = (q.float() * 8).to(torch.bfloat16)
+    errs[torch.bfloat16] = max(errs[torch.bfloat16],
+                               check_flash(q, k, v, True, 1000, 1000, "flash_attention bf16 x8"))
+    for dtype, hd in [(torch.float32, 16)] + [(torch.bfloat16, hd) for hd in kfa.HEAD_DIMS]:
+        q, k, v = attention_case(rng, device, 1, 32, 32, 2, 2, hd, dtype=dtype)
+        first = kfa.flash_attention(q, k, v, causal=True)[:, 0]
+        require(float((first.float() - v[:, 0].float()).abs().max()) <= 1e-5,
+                f"flash_attention {dtype} hd {hd}: first token != v[0]")
+    n_checks += 2 + len(kfa.HEAD_DIMS)
+    log(f"kernels: {n_checks} flash_attention checks against the plain version, max abs "
         f"err {errs[torch.float32]:.3g} (f32, limit {FLASH_F32_TOL}) and "
         f"{errs[torch.bfloat16]:.3g} (bf16, limit one bf16 ulp + {FLASH_F32_TOL}, cap "
         f"{FLASH_BF16_TOL})")
@@ -861,8 +897,10 @@ def phase_serve(device) -> dict:
     """qwen2.5-3b at full width and depth: greedy_generate over four
     10,240-token prompts and the SJPC request monitor (the main path, with
     the launch counts around it), then the same prefill and decode timed
-    step by step, then the plain path on the card (``impl="torch_ref"``).
-    Returns the numbers the kernel table needs."""
+    step by step, then the plain path on the card (``impl="torch_ref"``);
+    then the bf16 prefill (the tensor-core kernel's path, with its own
+    launch counts) and its plain path.  Returns the numbers the kernel
+    table needs."""
     require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are enabled")
     cfg = configs.get(SERVE_ARCH)
     dims = compute_dims(cfg)
@@ -985,12 +1023,48 @@ def phase_serve(device) -> dict:
         f"caches within {max(kv_rel):.3g} of max |x| (limit {KV_RTOL}; the last layer's V "
         f"{kv_rel[-1]:.3g}); plain path greedy_generate {ref_s:.3f} s, prefill "
         f"{ref_prefill_s * 1e3:.1f} ms")
-    return {"prefill_ms": prefill_s * 1e3, "decode_ms": decode_ms, "launches": counts}
+    del ref_logits
+
+    # the same prompts through a bf16 prefill (serving's default compute
+    # dtype): the kernel path, then the plain path on the card, each held
+    # against the f32 prefill's last-token logits
+    reset_counts()
+    bf16_s, (bf16_logits, bf16_cache) = synced_s(lambda: serve.make_prefill(cfg, dims)(params,
+                                                                                      prompts))
+    del bf16_cache
+    bf16_counts = read_counts("serve_bf16", ("flash_attention_tc",))
+    require(bf16_counts["flash_attention_tc"] == cfg.num_layers
+            and bf16_counts["flash_attention"] == 0,
+            f"serve_bf16: {bf16_counts['flash_attention_tc']} tensor-core and "
+            f"{bf16_counts['flash_attention']} f32 flash_attention launches; expected "
+            f"{cfg.num_layers} and 0")
+    with oracle_calls():
+        bf16_ref_s, (bf16_ref_logits, bf16_ref_cache) = synced_s(
+            lambda: serve.make_prefill(cfg, dims, impl="torch_ref")(params, prompts))
+    del bf16_ref_cache
+    require(all(bool(torch.isfinite(x).all()) and x.shape == logits.shape
+                for x in (bf16_logits, bf16_ref_logits)), "serve_bf16: prefill logits")
+    top = logits.abs().max()
+    e_k = float((bf16_logits - logits).abs().max() / top)
+    e_p = float((bf16_ref_logits - logits).abs().max() / top)
+    e_kp = float((bf16_logits - bf16_ref_logits).abs().max() / top)
+    require(e_k <= BF16_PREFILL_RATIO * e_p,
+            f"serve_bf16: kernel prefill's logits {e_k} of max |logit| from the f32 prefill's, "
+            f"more than {BF16_PREFILL_RATIO} x the plain bf16 path's {e_p}")
+    log(f"serve_bf16: prefill {bf16_s * 1e3:.1f} ms ({B * S / bf16_s:.0f} prompt tokens/s; "
+        f"host clock around synchronised work), {bf16_counts['flash_attention_tc']} "
+        f"tensor-core flash_attention launches; last-token logits against the f32 prefill's, "
+        f"max |d| / max |logit|: kernel e_k {e_k:.4g}, plain bf16 path e_p {e_p:.4g} (gate "
+        f"e_k <= {BF16_PREFILL_RATIO} e_p), kernel to plain {e_kp:.4g}; plain bf16 prefill "
+        f"{bf16_ref_s * 1e3:.1f} ms")
+    return {"prefill_ms": prefill_s * 1e3, "decode_ms": decode_ms, "launches": counts,
+            "prefill_bf16_ms": bf16_s * 1e3, "launches_bf16": bf16_counts}
 
 
-def flash_row(device, by_path, flush) -> dict:
-    """The flash_attention row at the serve phase's layer shape, f32 (the
-    path's dtype), plus the bf16 numbers, printed."""
+def flash_rows(device, by_path, flush) -> list[dict]:
+    """flash_attention at the serve phase's layer shape: the f32 kernel's
+    row (f32 is the main path's dtype), carrying the bf16 tensor-core
+    kernel's numbers as its bf16_* fields, and that kernel's own row."""
     rng = np.random.default_rng(SERVE_SEED + 1)
     shape = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 2, 128)
     out = {}
@@ -1024,32 +1098,46 @@ def flash_row(device, by_path, flush) -> dict:
         lib_expanded = device_ms(library_expanded, 3, flush)[0]
         del ke, ve
         err = check_flash(q, k, v, True, SERVE_CHUNK, SERVE_CHUNK, f"flash_attention {dtype}")
-        lib_err = float((library().transpose(1, 2).float() - plain().float()).abs().max())
+        want = plain()
+        lib_diff = (library().transpose(1, 2).float() - want.float()).abs()
+        lib_err = float(lib_diff.max())
+        lib_over = int((lib_diff > flash_limit(want)).sum())
+        del want, lib_diff
         nbytes, flops = attention_work(q, k, causal=True)
         peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_TENSOR_FLOPS_PER_S
         b_ms, b_by = bound_ms(nbytes, flops, peak)
+        ms = min(k1, k2)
         log(f"time flash_attention {dtype} {shape}: kernel {k1:.3f}/{k2:.3f} ms, plain "
             f"{p1:.3f}/{p2:.3f} ms, library (scaled_dot_product_attention, enable_gqa) "
-            f"{lib:.3f} ms (its max abs err {lib_err:.3g}), the memory-efficient backend on "
-            f"KV heads repeated 8x {lib_expanded:.3f} ms, bound {b_ms:.3f} ms ({b_by}: "
-            f"{nbytes} B, {flops} flops at {peak / 1e12:.1f} TFLOP/s); kernel at "
-            f"{flops / (min(k1, k2) / 1e3) / 1e12:.2f} TFLOP/s")
-        out[dtype] = {"name": "flash_attention", "route": "cuda",
-                      "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            f"{lib:.3f} ms (its max abs err {lib_err:.3g}, {lib_over} elements beyond the "
+            f"kernel's limit), the memory-efficient backend on KV heads repeated 8x "
+            f"{lib_expanded:.3f} ms, bound {b_ms:.3f} ms ({b_by}: {nbytes} B, {flops} flops at "
+            f"{peak / 1e12:.1f} TFLOP/s); kernel at {flops / (ms / 1e3) / 1e12:.2f} TFLOP/s"
+            + (f" ({1.5 * flops / (ms / 1e3) / 1e12:.2f} TFLOP/s of tensor-core work with the "
+               f"hi/lo split of P)" if dtype == torch.bfloat16 else ""))
+        name = "flash_attention" if dtype == torch.float32 else "flash_attention_tc"
+        out[dtype] = {"name": name, "route": "cuda",
+                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                       "replaces": REPLACES["flash_attention"],
-                      "launches": sum(counts["flash_attention"] for counts in by_path.values()),
-                      "launches_by_path": {path: counts["flash_attention"]
+                      "launches": sum(counts[name] for counts in by_path.values()),
+                      "launches_by_path": {path: counts[name]
                                            for path, counts in by_path.items()},
-                      "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                      "max_abs_err": err, "ms": ms, "plain_ms": min(p1, p2),
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
                       "library": "scaled_dot_product_attention(is_causal=True, "
                                  "enable_gqa=True), same dtype",
+                      "library_max_abs_err": lib_err, "library_over_limit": lib_over,
                       "library_best_ms": lib_expanded,
                       "library_best": "scaled_dot_product_attention, memory-efficient "
                                       "backend, on K/V heads repeated 8x beforehand (the "
-                                      "repeat not timed)"}
+                                      "repeat not timed)",
+                      "tflops": flops / (ms / 1e3) / 1e12}
         del q, k, v, qt, kt, vt
-    return out[torch.float32]
+    row, tc = out[torch.float32], out[torch.bfloat16]
+    row.update({"bf16_ms": tc["ms"], "bf16_bound_ms": tc["bound_ms"],
+                "bf16_library_ms": tc["library_ms"], "bf16_max_abs_err": tc["max_abs_err"],
+                "tc_launches": tc["launches"], "bf16_tflops": tc["tflops"]})
+    return [row, tc]
 
 
 def estimator_kernel_args(device, cfg, params, est_out):
@@ -1160,15 +1248,15 @@ def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
             f"per call), plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}: {nbytes} B, {ops} int ops)"
             + (f", library {lib:.4f} ms" if lib is not None else ""))
-    rows.append(flash_row(device, by_path, flush))
+    rows += flash_rows(device, by_path, flush)
     return rows
 
 
 def reset_counts() -> None:
     """Zero every kernel's launch count and the dispatch counters, just
     before a path runs."""
-    for module in KERNELS.values():
-        module.launches = 0
+    for module, attr, _ in COUNTS.values():
+        setattr(module, attr, 0)
     metrics.default_registry().clear()
 
 
@@ -1177,7 +1265,7 @@ def read_counts(path: str, kernels) -> dict[str, int]:
     ``kernels`` launched, and unless every dispatch of the path resolved to
     the hand-written kernel."""
     torch.cuda.synchronize()
-    launches = {name: module.launches for name, module in KERNELS.items()}
+    launches = {name: getattr(module, attr) for name, (module, attr, _) in COUNTS.items()}
     dispatch: dict[str, float] = {}
     for labels, count in metrics.default_registry().series("kernel_dispatch_total").items():
         label = dict(labels)
@@ -1188,8 +1276,9 @@ def read_counts(path: str, kernels) -> dict[str, int]:
     log(f"{path} path dispatches (all {registry.CUDA_SM90}): {dispatch}")
     for name in kernels:
         require(launches[name] > 0, f"{name} was not launched on the {path} path")
-    for name, count in launches.items():
-        require(dispatch.get(name, 0) >= count, f"{path}: {name} launched without a dispatch")
+    for op in KERNELS:
+        count = sum(launches[name] for name, (_, _, of) in COUNTS.items() if of == op)
+        require(dispatch.get(op, 0) >= count, f"{path}: {op} launched without a dispatch")
     return launches
 
 
@@ -1215,7 +1304,9 @@ def main() -> int:
     est_out = phase_estimators(device, cfg)
     by_path["estimators"] = read_counts("estimators", tuple(k for k in KERNELS
                                                              if k != "flash_attention"))
-    by_path["serve"] = phase_serve(device)["launches"]
+    serve_out = phase_serve(device)
+    by_path["serve"] = serve_out["launches"]
+    by_path["serve_bf16"] = serve_out["launches_bf16"]
 
     rows = phase_numbers(device, cfg, params, records, tenants, by_path, est_out)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,10 +1,11 @@
-// Flash attention (forward), for Hopper.
+// Flash attention (forward) in float32, for Hopper.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (flash_attention_pallas and its model-layout wrapper flash_attention):
+// (flash_attention_pallas and its model-layout wrapper flash_attention)
+// for float32 inputs (bfloat16 inputs go to csrc/flash_attention_tc.cu):
 // online-softmax attention that never writes a score tile to device
 // memory.  q (B, Sq, H, hd) and k, v (B, Skv, KV, hd) in the model's own
-// layout, float32 or bfloat16; out (B, Sq, H, hd) in q's type.  Query head
+// layout, float32; out (B, Sq, H, hd) float32.  Query head
 // h reads KV head h / (H / KV): KV heads are indexed, never expanded.
 // Causal masking is top-left aligned (query i sees keys 0..i).  The math
 // is that of the TPU kernel's body: scores in f32 times 1/sqrt(hd),
@@ -31,9 +32,7 @@
 // register-tiled FMA loops over float4 shared-memory reads.  Row max and
 // row sum reduce over the 16 threads of a row with warp shuffles; the
 // probabilities go through shared memory (transposed) into the P.V
-// product.  Query tiles run heaviest first.  wgmma, TMA and a bf16
-// tensor-core path are later work (ROADMAP queue 2).
-#include <cuda_bf16.h>
+// product.  Query tiles run heaviest first.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -53,16 +52,7 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
-}
-
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // Rows [r0, r0 + kRows) of a row-major (n, row_stride) array, transposed
 // into dst[d * kRows + r] as f32; rows at or past n are zero.  Consecutive
@@ -287,19 +277,13 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns the launch's CUDA error (0: none).
+// float32 q, k, v and out.  Returns the launch's CUDA error (0: none).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int H, int KV, int Sq, int Skv, int hd, int dtype, int causal,
-                                   int device, void* stream) {
+                                   int H, int KV, int Sq, int Skv, int hd, int causal, int device,
+                                   void* stream) {
   cudaSetDevice(device);
   if (B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaGetLastError());
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
-    err = launch_hd<float>(q, k, v, o, B, H, KV, Sq, Skv, hd, causal, s);
-  } else if (dtype == 1) {
-    err = launch_hd<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Skv, hd, causal, s);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch_hd<float>(q, k, v, o, B, H, KV, Sq, Skv, hd, causal, s));
 }

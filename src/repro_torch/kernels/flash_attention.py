@@ -1,11 +1,13 @@
-"""Flash attention (forward): the CUDA kernel ``csrc/flash_attention.cu``
-and its wrapper.
+"""Flash attention (forward): the CUDA kernels ``csrc/flash_attention.cu``
+(float32, CUDA cores) and ``csrc/flash_attention_tc.cu`` (bfloat16, tensor
+cores: wgmma and TMA, probabilities kept at f32 precision), and their
+wrapper.
 
 Replaces the Pallas TPU kernel ``flash_attention_pallas`` (and its
 model-layout wrapper ``flash_attention``) of the JAX package.  This is the
 op's ``cuda_sm90`` tier in the kernel registry (``kernels/ops.py``); its
 oracle is :func:`.ref.flash_attention_ref`.  It takes CUDA tensors only,
-launches the kernel or raises.
+launches a kernel or raises; the input dtype picks the kernel.
 """
 from __future__ import annotations
 
@@ -13,11 +15,12 @@ import torch
 
 from . import _build
 
-launches = 0   # kernel launches since the last reset
+launches = 0      # launches of the float32 kernel since the last reset
+tc_launches = 0   # launches of the bfloat16 tensor-core kernel since the last reset
 
 HEAD_DIMS = (16, 32, 64, 128)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-Q_TILE = 64                 # query rows per CTA (csrc/flash_attention.cu)
+DTYPES = (torch.float32, torch.bfloat16)
+Q_TILE = 64                 # query rows per CTA of the f32 kernel (the tc kernel's is 128)
 MAX_Q_TILES = 65535         # the grid's y limit
 
 
@@ -28,10 +31,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     top-left aligned (query i sees keys 0..i).
 
     ``block_q``/``block_k`` are the oracle's tiles, taken for the
-    registry's common signature: the kernel tiles by 64 x 64 whatever they
-    are, and agrees with the oracle within 2e-5 (f32) at any of them.  Any
-    Sq and Skv are accepted (ragged tiles are masked)."""
-    global launches
+    registry's common signature: the kernels tile by their own sizes
+    whatever they are, and agree with the oracle within 2e-5 (f32; in bf16
+    within one bf16 ulp more) at any of them.  Any Sq and Skv are accepted
+    (ragged tiles are masked)."""
+    global launches, tc_launches
     device = q.device
     _build.require_cuda("flash_attention", device)
     if q.dtype not in DTYPES:
@@ -53,7 +57,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    _build.launch("flash_attention", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), B, H, KV, Sq, Skv, hd, DTYPES[q.dtype], int(bool(causal)))
-    launches += 1
+    if q.dtype == torch.bfloat16:
+        _build.launch("flash_attention_tc", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), B, H, KV, Sq, Skv, hd, int(bool(causal)))
+        tc_launches += 1
+    else:
+        _build.launch("flash_attention", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), B, H, KV, Sq, Skv, hd, int(bool(causal)))
+        launches += 1
     return out

@@ -1,8 +1,10 @@
 """The port's attention against the JAX package on the CPU: the plain tier
 of ``ops.flash_attention`` against the Pallas flash kernel (interpret
 mode) on the grid of ``tests/test_flash_attention.py``, ``chunked_attention``
-against the JAX one (the flash kernel's oracle, <= 1e-6 in f32), and
-``full_attention`` with a query offset and a cache mask."""
+against the JAX one (the flash kernel's oracle, <= 1e-6 in f32),
+``full_attention`` with a query offset and a cache mask, and the numeric
+scheme of the bf16 tensor-core kernel (``csrc/flash_attention_tc.cu``)
+emulated in plain torch against the Pallas kernel on bf16 inputs."""
 import numpy as np
 import pytest
 
@@ -136,3 +138,54 @@ def test_bf16_probabilities_match_jax():
         got = tattn.chunked_attention(*tin, causal=causal, q_chunk=16, kv_chunk=16,
                                       probs_dtype=torch.bfloat16)
         np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+
+
+def _tc_scheme(q, k, v, *, causal, block_k=128):
+    """The bf16 tensor-core kernel's arithmetic in plain torch, for this
+    test only: bf16 q, k, v; f32 scores (exact bf16 products, f32 sums)
+    times 1/sqrt(hd); an online softmax over 128-key tiles with the
+    kernel's masking; P split into p_hi = bf16(p) and p_lo = bf16(p - p_hi),
+    and P_hi V + P_lo V summed in f32; out = acc / max(l, 1e-30) in bf16."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, sq, kvh, h // kvh, hd)
+    kf, vf = k.float(), v.float()
+    scale = np.float32(1.0 / np.sqrt(hd))
+    m = torch.full((b, kvh, h // kvh, sq), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, h // kvh, sq, hd))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, block_k):
+        kt, vt = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf, kt) * scale
+        kpos = k0 + torch.arange(kt.shape[1])[None, :]
+        if causal:
+            s = torch.where(kpos > qpos, torch.tensor(-1e30), s)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where((m_new > -5e29)[..., None], torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.where(m > -5e29, torch.exp(m - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float()
+        acc = (acc * alpha[..., None] + torch.einsum("bkgqs,bskh->bkgqh", p_hi, vt)
+               + torch.einsum("bkgqs,bskh->bkgqh", p_lo, vt))
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,causal", [
+    (1, 200, 200, 8, 2, 128, True),      # ragged 128-key tiles, GQA 4:1
+    (2, 63, 129, 4, 1, 64, False),       # Sq < Skv, MQA
+])
+def test_tensor_core_scheme_matches_jax_flash_in_bf16(b, sq, skv, h, kv, hd, causal):
+    """The hi/lo split keeps the probabilities at f32 precision, so the
+    scheme meets the card's bf16 gate against the Pallas kernel (interpret
+    mode): per element within one bf16 ulp of the JAX value plus 2e-5."""
+    jin, tin = _rand(9, b, sq, skv, h, kv, hd, "bfloat16")
+    want = torch.from_numpy(_np(jflash(*jin, causal=causal, block_q=sq, block_k=skv)))
+    got = _tc_scheme(*tin, causal=causal).float()
+    _, e = torch.frexp(want)
+    limit = torch.ldexp(torch.ones_like(want), e - 8) * (want != 0) + 2e-5
+    diff = (got - want).abs()
+    assert not bool((diff > limit).any()), (float(diff.max()), int((diff > limit).sum()))

@@ -230,15 +230,79 @@ def test_flash_attention_equals_plain(cuda, b, sq, skv, h, kv, hd, dtype, causal
     rng = np.random.default_rng(sq * h + hd)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda, dtype)
                for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd)))
-    before = kfa.launches
+    before = _launch_counts()
     got = kfa.flash_attention(q, k, v, causal=causal)
-    assert kfa.launches == before + 1
+    # f32 runs the CUDA-core kernel, bf16 the tensor-core one
+    assert _launch_counts() == _rose(before, dtype)
     want = ref.flash_attention_ref(q, k, v, causal=causal, block_q=sq, block_k=skv)
     assert got.dtype == dtype and got.shape == q.shape
     assert_flash_close(got, want)
     if causal:
         torch.testing.assert_close(got[:, 0].float(), v[:, 0].repeat_interleave(h // kv, 1)
                                    .float(), rtol=1e-5, atol=1e-5)
+
+
+def _launch_counts():
+    return kfa.launches, kfa.tc_launches
+
+
+def _rose(before, dtype):
+    """The launch counts after one call in ``dtype``."""
+    f32, tc = before
+    return (f32 + 1, tc) if dtype == torch.float32 else (f32, tc + 1)
+
+
+def _bf16_case(seed, b, sq, skv, h, kv, hd, q_scale=1.0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd)))
+    return tuple(x.to("cuda", torch.bfloat16) for x in (q * q_scale, k, v))
+
+
+# (Sq, Skv) of the tensor-core kernel's cases: single rows, ragged 128-row
+# and 128-key tiles, Sq < Skv and Sq > Skv
+TC_LENGTHS = [(1, 1), (1, 63), (63, 129), (129, 63), (200, 200), (200, 1000), (1000, 200),
+              (1000, 1000)]
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,skv", TC_LENGTHS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_tensor_cores_equals_plain(cuda, hd, sq, skv, causal):
+    """bf16 through the tensor-core kernel, per element within one bf16 ulp
+    of the plain version + 2e-5; 8 query heads over 8, 4 or 1 KV heads
+    (GQA groups 1, 2 and 8, by case)."""
+    kv = (8, 4, 1)[(TC_LENGTHS.index((sq, skv)) + hd // 16) % 3]
+    q, k, v = _bf16_case(sq + 7 * skv + hd, 2, sq, skv, 8, kv, hd)
+    before = _launch_counts()
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    assert _launch_counts() == _rose(before, torch.bfloat16)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, block_q=sq, block_k=skv)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert_flash_close(got, want)
+
+
+@pytest.mark.parametrize("kv", [8, 4, 1])
+def test_flash_attention_bf16_large_scores_equal_plain(cuda, kv):
+    """q scaled 8x: scores of tens, so the running max moves by large steps
+    and the rescale of the accumulator matters."""
+    q, k, v = _bf16_case(kv, 1, 1000, 1000, 8, kv, 128, q_scale=8.0)
+    before = _launch_counts()
+    got = kfa.flash_attention(q, k, v, causal=True)
+    assert _launch_counts() == _rose(before, torch.bfloat16)
+    assert_flash_close(got, ref.flash_attention_ref(q, k, v, causal=True, block_q=1000,
+                                                    block_k=1000))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_attention_bf16_first_token_is_v0(cuda, hd):
+    """Causal row 0 sees key 0 only: out[:, 0] is v[:, 0] of its KV head."""
+    q, k, v = _bf16_case(hd, 2, 300, 300, 8, 2, hd)
+    before = _launch_counts()
+    got = kfa.flash_attention(q, k, v, causal=True)
+    assert _launch_counts() == _rose(before, torch.bfloat16)
+    torch.testing.assert_close(got[:, 0].float(), v[:, 0].repeat_interleave(4, 1).float(),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
