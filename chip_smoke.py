@@ -21,17 +21,20 @@ w=1024, t=3):
   random f32 weights from a seeded ``torch.Generator`` on the card, 4
   prompts of 10,240 tokens (prompt 2 repeats prompt 0) through
   ``greedy_generate`` for 16 tokens -- every layer's prefill attention runs
-  the ``flash_attention`` kernel -- and the SJPC request monitor over the
-  prompts (``fingerprint`` kernel); then the same prompts through a bf16
-  prefill (``make_prefill`` at its default compute dtype), whose attention
-  runs the bf16 tensor-core kernel (``csrc/flash_attention_tc.cu``).
+  the f32 ``flash_attention`` kernel (``csrc/flash_attention_f32.cu``, f32
+  precision on the tensor cores from split bf16 operands) -- and the SJPC
+  request monitor over the prompts (``fingerprint`` kernel); then the same
+  prompts through a bf16 prefill (``make_prefill`` at its default compute
+  dtype), whose attention runs the bf16 kernel
+  (``csrc/flash_attention_tc.cu``).
 
 Every result of a kernel path is compared with the same computation
 through the plain versions on the card (``impl="torch_ref"``); LSH-SS,
 which launches no kernel, is held against its ``estimate_ref``.  The flash
-kernel agrees with its plain version within 2e-5 in f32, and in bf16
-within one bf16 ulp of the plain value plus 2e-5 (and 2e-2 anywhere); the
-other kernels bit for bit.  The serve phase also holds the prefill's K/V
+kernel agrees with its plain version within 2e-5 in f32 (with q scaled 8x,
+where f32's rounding of the scores moves the plain version itself that far,
+with a float64 answer instead), and in bf16 within one bf16 ulp of the
+plain value plus 2e-5 (and 2e-2 anywhere); the other kernels bit for bit.  The serve phase also holds the prefill's K/V
 cache of every layer against the plain path's, and the request monitor's
 fingerprints and counters against the plain versions; the bf16 prefill's
 last-token logits are no further from the f32 prefill's than the plain
@@ -95,6 +98,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # accumulates in f32.
 F32_FLOPS_PER_S = 132 * 128 * 2 * 1.98e9
 BF16_TENSOR_FLOPS_PER_S = 989e12
+# The f32 flash kernel does each matrix product as this many bf16 products
+# of split operands (three parts each, the pairs whose indices add up to at
+# most 2): at the bf16 tensor-core rate, its floor at f32 precision.
+F32_SPLIT_PRODUCTS = 6
 # A field element (record column, mask, id, base, hash coefficient,
 # fingerprint) is a uint32 in the functions the kernels compute.
 FIELD_BYTES = 4
@@ -152,9 +159,13 @@ KERNELS = {"fused_ingest": kfi, "fingerprint": kfp, "fused_query": kfq,
            "fused_pairs": kpairs, "sketch_update": ksu, "sketch_moments": ksm,
            "flash_attention": kfa}
 # Every launch count: (module, attribute, the op whose dispatches it counts).
-# The flash_attention op has two kernels, f32 and bf16 (tensor cores).
+# The flash_attention op has two kernels, f32 (split operands) and bf16.
 COUNTS = {name: (module, "launches", name) for name, module in KERNELS.items()}
 COUNTS["flash_attention_tc"] = (kfa, "tc_launches", "flash_attention")
+# Each kernel's source under src/repro_torch/kernels/csrc (the f32 flash
+# kernel's row keeps the op's name).
+SOURCES = {name: f"{name}.cu" for name in COUNTS}
+SOURCES["flash_attention"] = "flash_attention_f32.cu"
 REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:87",
             "fused_ingest": "src/repro/kernels/fused_ingest.py:85",
             "fingerprint": "src/repro/kernels/fingerprint.py:41",
@@ -426,13 +437,13 @@ def flash_limit(want: torch.Tensor) -> torch.Tensor:
 def check_flash(q, k, v, causal, block_q, block_k, what) -> float:
     """The kernel against its plain version (in the given blocks), element
     by element within :func:`flash_limit`; returns the max abs difference.
-    f32 must launch the f32 kernel, bf16 the tensor-core kernel."""
+    f32 must launch the f32 kernel, bf16 the bf16 kernel."""
     before = (kfa.launches, kfa.tc_launches)
     got = kfa.flash_attention(q, k, v, causal=causal)
     rose = (1, 0) if q.dtype == torch.float32 else (0, 1)
     require((kfa.launches - before[0], kfa.tc_launches - before[1]) == rose,
             f"{what}: launched {kfa.launches - before[0]} f32 / "
-            f"{kfa.tc_launches - before[1]} tensor-core kernels, expected {rose}")
+            f"{kfa.tc_launches - before[1]} bf16 kernels, expected {rose}")
     want = ref.flash_attention_ref(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
     require(got.dtype == want.dtype == q.dtype and got.shape == q.shape, f"{what}: dtype/shape")
     diff = (got.float() - want.float()).abs()
@@ -442,6 +453,17 @@ def check_flash(q, k, v, causal, block_q, block_k, what) -> float:
     require(over == 0 and err <= cap,
             f"{what}: {over} elements beyond the limit, max abs err {err} (cap {cap})")
     return err
+
+
+def exact_attention(q, k, v) -> torch.Tensor:
+    """Causal attention in float64, KV heads repeated: the exact answer to
+    the f32 inputs, up to float64 rounding."""
+    b, sq, h, hd = q.shape
+    kd, vd = (x.double().repeat_interleave(h // k.shape[2], 2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kd) / math.sqrt(hd)
+    above = torch.ones(sq, k.shape[1], dtype=torch.bool, device=q.device).triu(1)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s.masked_fill(above, -math.inf), -1),
+                        vd)
 
 
 def check_flash_grid(rng, device) -> None:
@@ -461,13 +483,13 @@ def check_flash_grid(rng, device) -> None:
     cases += [((1, sq, skv, 16, 2, 128), dtype, causal, sq, skv)
               for sq, skv in ((200, 200), (1000, 1000), (64, 300))
               for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)]
-    # the bf16 tensor-core kernel: every head dim, GQA groups 1, 2 and 8,
-    # single rows and ragged 128-row / 128-key tiles with Sq < Skv and
-    # Sq > Skv, causal or not
+    # both kernels: every head dim, GQA groups 1, 2 and 8, single rows and
+    # ragged 128-row query tiles and 32-, 64- or 128-key tiles with Sq <
+    # Skv and Sq > Skv, causal or not
     lengths = ((1, 1), (1, 63), (63, 129), (129, 63), (200, 200), (200, 1000), (1000, 200),
                (1000, 1000))
-    cases += [((2, sq, skv, 8, (8, 4, 1)[(i + hd // 16) % 3], hd), torch.bfloat16, causal, sq,
-               skv)
+    cases += [((2, sq, skv, 8, (8, 4, 1)[(i + hd // 16) % 3], hd), dtype, causal, sq, skv)
+              for dtype in (torch.float32, torch.bfloat16)
               for hd in kfa.HEAD_DIMS for i, (sq, skv) in enumerate(lengths)
               for causal in (True, False)]
     for shape, dtype, causal, bq, bk in cases:
@@ -476,17 +498,33 @@ def check_flash_grid(rng, device) -> None:
                                                     f"causal={causal}")
         errs[dtype] = max(errs[dtype], err)
         n_checks += 1
-    # q scaled 8x: scores of tens, large steps of the running max
-    q, k, v = attention_case(rng, device, 1, 1000, 1000, 16, 2, 128, dtype=torch.bfloat16)
-    q = (q.float() * 8).to(torch.bfloat16)
-    errs[torch.bfloat16] = max(errs[torch.bfloat16],
-                               check_flash(q, k, v, True, 1000, 1000, "flash_attention bf16 x8"))
-    for dtype, hd in [(torch.float32, 16)] + [(torch.bfloat16, hd) for hd in kfa.HEAD_DIMS]:
+    # q scaled up: scores of tens, large steps of the running max (8x in
+    # bf16; 4x in f32, and 8x in f32 against the float64 answer, since
+    # f32's own rounding of scores that large moves the plain version about
+    # FLASH_F32_TOL from it)
+    for dtype, scale in ((torch.float32, 4), (torch.bfloat16, 8)):
+        q, k, v = attention_case(rng, device, 1, 1000, 1000, 16, 2, 128, dtype=dtype)
+        q = (q.float() * scale).to(dtype)
+        errs[dtype] = max(errs[dtype], check_flash(q, k, v, True, 1000, 1000,
+                                                   f"flash_attention {dtype} x{scale}"))
+    q, k, v = attention_case(rng, device, 1, 1000, 1000, 16, 2, 128)
+    q = q * 8
+    exact = exact_attention(q, k, v)
+    e_kernel = float((kfa.flash_attention(q, k, v, causal=True).double() - exact).abs().max())
+    e_plain = float((ref.flash_attention_ref(q, k, v, causal=True, block_q=1000, block_k=1000)
+                     .double() - exact).abs().max())
+    require(e_kernel <= min(FLASH_F32_TOL, e_plain),
+            f"flash_attention f32 x8: {e_kernel} from the float64 answer (plain version "
+            f"{e_plain}, limit {FLASH_F32_TOL})")
+    log(f"kernels: flash_attention f32 with q x8, max abs distance from the float64 answer: "
+        f"kernel {e_kernel:.3g}, plain version {e_plain:.3g} (limit: {FLASH_F32_TOL} and "
+        f"the plain version's)")
+    for dtype, hd in itertools.product((torch.float32, torch.bfloat16), kfa.HEAD_DIMS):
         q, k, v = attention_case(rng, device, 1, 32, 32, 2, 2, hd, dtype=dtype)
         first = kfa.flash_attention(q, k, v, causal=True)[:, 0]
         require(float((first.float() - v[:, 0].float()).abs().max()) <= 1e-5,
                 f"flash_attention {dtype} hd {hd}: first token != v[0]")
-    n_checks += 2 + len(kfa.HEAD_DIMS)
+    n_checks += 3 + 2 * len(kfa.HEAD_DIMS)
     log(f"kernels: {n_checks} flash_attention checks against the plain version, max abs "
         f"err {errs[torch.float32]:.3g} (f32, limit {FLASH_F32_TOL}) and "
         f"{errs[torch.bfloat16]:.3g} (bf16, limit one bf16 ulp + {FLASH_F32_TOL}, cap "
@@ -928,15 +966,17 @@ def phase_serve(device) -> dict:
                                        impl=registry.TORCH_REF)
     counts = read_counts("serve", ("flash_attention", "fingerprint"))
     require(flash_kernel == cfg.num_layers and flash_plain == 0 and
-            counts["flash_attention"] == cfg.num_layers,
+            counts["flash_attention"] == cfg.num_layers and counts["flash_attention_tc"] == 0,
             f"serve: flash_attention dispatches {flash_kernel} cuda_sm90 / {flash_plain} "
-            f"torch_ref, {counts['flash_attention']} launches; expected {cfg.num_layers} / 0")
+            f"torch_ref, {counts['flash_attention']} f32 and {counts['flash_attention_tc']} "
+            f"bf16 kernel launches; expected {cfg.num_layers} / 0, {cfg.num_layers} and 0")
     require(tuple(tokens.shape) == (B, steps) and tokens.dtype == torch.int32, "serve: tokens")
     require(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "serve: token ids")
     require(torch.equal(tokens[0], tokens[2]), "serve: duplicate prompts generated differently")
     log(f"serve: greedy_generate of {B} x {S} prompt tokens + {steps} tokens in {gen_s:.3f} s "
         f"(host clock); {counts['flash_attention']} flash_attention launches, all "
-        f"{registry.CUDA_SM90}; tokens row 0 {tokens[0].tolist()}")
+        f"{registry.CUDA_SM90} and all of the f32 kernel ({SOURCES['flash_attention']}); "
+        f"tokens row 0 {tokens[0].tolist()}")
 
     records = records_from_tokens(prompts, MONITOR.d)
     require(np.array_equal(records.cpu().numpy(),
@@ -1063,8 +1103,10 @@ def phase_serve(device) -> dict:
 
 def flash_rows(device, by_path, flush) -> list[dict]:
     """flash_attention at the serve phase's layer shape: the f32 kernel's
-    row (f32 is the main path's dtype), carrying the bf16 tensor-core
-    kernel's numbers as its bf16_* fields, and that kernel's own row."""
+    row (f32 is the main path's dtype), carrying the bf16 kernel's numbers
+    as its bf16_* fields, and that kernel's own row.  The f32 row's bound
+    is that of its split (F32_SPLIT_PRODUCTS bf16 products per matrix
+    product on the tensor cores), the CUDA cores' f32 bound beside it."""
     rng = np.random.default_rng(SERVE_SEED + 1)
     shape = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 16, 2, 128)
     out = {}
@@ -1104,20 +1146,31 @@ def flash_rows(device, by_path, flush) -> list[dict]:
         lib_over = int((lib_diff > flash_limit(want)).sum())
         del want, lib_diff
         nbytes, flops = attention_work(q, k, causal=True)
-        peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_TENSOR_FLOPS_PER_S
-        b_ms, b_by = bound_ms(nbytes, flops, peak)
+        # tensor-core flops per useful flop: the f32 kernel's split, or the
+        # bf16 kernel's hi/lo P (S once, P V twice)
+        work = F32_SPLIT_PRODUCTS if dtype == torch.float32 else 1.5
+        if dtype == torch.float32:
+            b_ms, b_by = bound_ms(nbytes, work * flops, BF16_TENSOR_FLOPS_PER_S)
+            cc_ms, _ = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+            bounds = (f"bound {b_ms:.3f} ms ({b_by}: {nbytes} B, {work} x {flops} flops of "
+                      f"the split at {BF16_TENSOR_FLOPS_PER_S / 1e12:.1f} TFLOP/s), the "
+                      f"CUDA cores' f32 bound {cc_ms:.3f} ms ({flops} flops at "
+                      f"{F32_FLOPS_PER_S / 1e12:.1f} TFLOP/s)")
+        else:
+            b_ms, b_by = bound_ms(nbytes, flops, BF16_TENSOR_FLOPS_PER_S)
+            bounds = (f"bound {b_ms:.3f} ms ({b_by}: {nbytes} B, {flops} flops at "
+                      f"{BF16_TENSOR_FLOPS_PER_S / 1e12:.1f} TFLOP/s)")
         ms = min(k1, k2)
+        tflops = flops / (ms / 1e3) / 1e12
         log(f"time flash_attention {dtype} {shape}: kernel {k1:.3f}/{k2:.3f} ms, plain "
             f"{p1:.3f}/{p2:.3f} ms, library (scaled_dot_product_attention, enable_gqa) "
             f"{lib:.3f} ms (its max abs err {lib_err:.3g}, {lib_over} elements beyond the "
             f"kernel's limit), the memory-efficient backend on KV heads repeated 8x "
-            f"{lib_expanded:.3f} ms, bound {b_ms:.3f} ms ({b_by}: {nbytes} B, {flops} flops at "
-            f"{peak / 1e12:.1f} TFLOP/s); kernel at {flops / (ms / 1e3) / 1e12:.2f} TFLOP/s"
-            + (f" ({1.5 * flops / (ms / 1e3) / 1e12:.2f} TFLOP/s of tensor-core work with the "
-               f"hi/lo split of P)" if dtype == torch.bfloat16 else ""))
+            f"{lib_expanded:.3f} ms, {bounds}; kernel at {tflops:.2f} TFLOP/s of useful "
+            f"work, {work * tflops:.2f} TFLOP/s of tensor-core work")
         name = "flash_attention" if dtype == torch.float32 else "flash_attention_tc"
         out[dtype] = {"name": name, "route": "cuda",
-                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                      "source": f"src/repro_torch/kernels/csrc/{SOURCES[name]}",
                       "replaces": REPLACES["flash_attention"],
                       "launches": sum(counts[name] for counts in by_path.values()),
                       "launches_by_path": {path: counts[name]
@@ -1131,7 +1184,9 @@ def flash_rows(device, by_path, flush) -> list[dict]:
                       "library_best": "scaled_dot_product_attention, memory-efficient "
                                       "backend, on K/V heads repeated 8x beforehand (the "
                                       "repeat not timed)",
-                      "tflops": flops / (ms / 1e3) / 1e12}
+                      "tflops": tflops, "tensor_tflops": work * tflops}
+        if dtype == torch.float32:
+            out[dtype]["bound_cuda_core_ms"] = cc_ms
         del q, k, v, qt, kt, vt
     row, tc = out[torch.float32], out[torch.bfloat16]
     row.update({"bf16_ms": tc["ms"], "bf16_bound_ms": tc["bound_ms"],
@@ -1237,7 +1292,7 @@ def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
         require(err == 0.0, f"{name}: timed output differs from the plain version")
         b_ms, b_by = bound_ms(nbytes, ops)
         rows.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                     "source": f"src/repro_torch/kernels/csrc/{SOURCES[name]}",
                      "replaces": REPLACES[name],
                      "launches": sum(counts[name] for counts in by_path.values()),
                      "launches_by_path": {path: counts[name] for path, counts in by_path.items()},

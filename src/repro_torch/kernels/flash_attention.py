@@ -1,6 +1,7 @@
-"""Flash attention (forward): the CUDA kernels ``csrc/flash_attention.cu``
-(float32, CUDA cores) and ``csrc/flash_attention_tc.cu`` (bfloat16, tensor
-cores: wgmma and TMA, probabilities kept at f32 precision), and their
+"""Flash attention (forward): the CUDA kernels ``csrc/flash_attention_f32.cu``
+(float32 at f32 precision on the tensor cores, from operands split into
+three bf16 parts) and ``csrc/flash_attention_tc.cu`` (bfloat16,
+probabilities kept at f32 precision), both on wgmma and TMA, and their
 wrapper.
 
 Replaces the Pallas TPU kernel ``flash_attention_pallas`` (and its
@@ -16,12 +17,13 @@ import torch
 from . import _build
 
 launches = 0      # launches of the float32 kernel since the last reset
-tc_launches = 0   # launches of the bfloat16 tensor-core kernel since the last reset
+tc_launches = 0   # launches of the bfloat16 kernel since the last reset
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-Q_TILE = 64                 # query rows per CTA of the f32 kernel (the tc kernel's is 128)
+Q_TILE = 128                # query rows per CTA of either kernel
 MAX_Q_TILES = 65535         # the grid's y limit
+PARTS = 3                   # bf16 parts of each f32 operand
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -33,8 +35,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     ``block_q``/``block_k`` are the oracle's tiles, taken for the
     registry's common signature: the kernels tile by their own sizes
     whatever they are, and agree with the oracle within 2e-5 (f32; in bf16
-    within one bf16 ulp more) at any of them.  Any Sq and Skv are accepted
-    (ragged tiles are masked)."""
+    within one bf16 ulp more) at any of them.  Any Sq and any Skv > 0 are
+    accepted (ragged tiles are masked).  float32 inputs take bf16 scratch
+    for their three parts, 1.5 times their size."""
     global launches, tc_launches
     device = q.device
     _build.require_cuda("flash_attention", device)
@@ -42,6 +45,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
+    if Skv == 0:
+        raise ValueError("k and v hold no keys")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS}")
     if KV == 0 or H % KV:
@@ -62,7 +67,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                       out.data_ptr(), B, H, KV, Sq, Skv, hd, int(bool(causal)))
         tc_launches += 1
     else:
-        _build.launch("flash_attention", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), B, H, KV, Sq, Skv, hd, int(bool(causal)))
+        qs, ks, vs = (torch.empty((PARTS,) + x.shape, dtype=torch.bfloat16, device=device)
+                      for x in (q, k, v))
+        _build.launch("flash_attention_f32", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), out.data_ptr(), B, H, KV,
+                      Sq, Skv, hd, int(bool(causal)))
         launches += 1
     return out

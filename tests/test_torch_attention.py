@@ -3,8 +3,10 @@ of ``ops.flash_attention`` against the Pallas flash kernel (interpret
 mode) on the grid of ``tests/test_flash_attention.py``, ``chunked_attention``
 against the JAX one (the flash kernel's oracle, <= 1e-6 in f32),
 ``full_attention`` with a query offset and a cache mask, and the numeric
-scheme of the bf16 tensor-core kernel (``csrc/flash_attention_tc.cu``)
-emulated in plain torch against the Pallas kernel on bf16 inputs."""
+schemes of the tensor-core kernels emulated in plain torch against the
+Pallas kernel: the bf16 kernel's (``csrc/flash_attention_tc.cu``) on bf16
+inputs, the f32 kernel's split operands (``csrc/flash_attention_f32.cu``)
+on f32 inputs."""
 import numpy as np
 import pytest
 
@@ -189,3 +191,92 @@ def test_tensor_core_scheme_matches_jax_flash_in_bf16(b, sq, skv, h, kv, hd, cau
     limit = torch.ldexp(torch.ones_like(want), e - 8) * (want != 0) + 2e-5
     diff = (got - want).abs()
     assert not bool((diff > limit).any()), (float(diff.max()), int((diff > limit).sum()))
+
+
+def _parts(x, n):
+    """x split into n bf16 parts (as f32 tensors), each the round-to-nearest
+    bf16 of what the parts before it leave: the f32 kernel's split."""
+    parts = []
+    for _ in range(n):
+        part = x.to(torch.bfloat16).float()
+        parts.append(part)
+        x = x - part
+    return parts
+
+
+def _products(n):
+    """The (i, j) part pairs of a product of two n-part operands that the
+    f32 kernel sums, i + j <= n - 1, smallest first."""
+    return sorted(((i, j) for i in range(n) for j in range(n) if i + j < n),
+                  key=lambda ij: -sum(ij))
+
+
+def _f32_scheme(q, k, v, *, causal, parts=3):
+    """The f32 tensor-core kernel's arithmetic in plain torch, for this
+    test only: q, k, v and each tile's probabilities split into ``parts``
+    bf16 parts; S and each tile's O = P V sum the partial products of
+    :func:`_products` (exact bf16 products, f32 sums) into a fresh f32
+    accumulator, smallest first; 32-key tiles at hd 128, 64 below; the
+    online softmax with the kernel's masking; acc = acc * alpha + O; out =
+    acc / max(l, 1e-30).  ``parts=1`` is the same arithmetic on operands
+    rounded to bf16 once."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    block_k = 32 if hd == 128 else 64
+    qp = [x.reshape(b, sq, kvh, h // kvh, hd) for x in _parts(q, parts)]
+    kp, vp = _parts(k, parts), _parts(v, parts)
+    scale = np.float32(1.0 / np.sqrt(hd))
+    m = torch.full((b, kvh, h // kvh, sq), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, h // kvh, sq, hd))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, block_k):
+        s = sum(torch.einsum("bqkgh,bskh->bkgqs", qp[i], kp[j][:, k0:k0 + block_k])
+                for i, j in _products(parts)) * scale
+        kpos = k0 + torch.arange(s.shape[-1])[None, :]
+        if causal:
+            s = torch.where(kpos > qpos, torch.tensor(-1e30), s)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where((m_new > -5e29)[..., None], torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.where(m > -5e29, torch.exp(m - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        pp = _parts(p, parts)
+        o = sum(torch.einsum("bkgqs,bskh->bkgqh", pp[i], vp[j][:, k0:k0 + block_k])
+                for i, j in _products(parts))
+        acc = acc * alpha[..., None] + o
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+
+
+F32_SCHEME_CASES = [
+    (1, 200, 200, 8, 2, 128, True),      # ragged 32-key tiles, GQA 4:1
+    (2, 63, 129, 4, 1, 64, False),       # Sq < Skv, MQA
+    (1, 129, 63, 4, 4, 64, True),        # Sq > Skv, MHA
+    (2, 96, 96, 6, 3, 128, False),       # GQA 2:1
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,causal", F32_SCHEME_CASES)
+def test_f32_tensor_core_scheme_matches_jax_flash(b, sq, skv, h, kv, hd, causal):
+    """Three bf16 parts per operand and six partial products per matrix
+    product keep f32 precision: the scheme meets the card's f32 gate (2e-5)
+    against the Pallas kernel (interpret mode) on f32 inputs."""
+    jin, tin = _rand(10, b, sq, skv, h, kv, hd)
+    want = _np(jflash(*jin, causal=causal, block_q=sq, block_k=skv))
+    got = _f32_scheme(*tin, causal=causal)
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=2e-5)
+
+
+def test_f32_scheme_needs_the_split():
+    """The parts are exact (x0 + x1 + x2 == x); the same arithmetic on q, k,
+    v and p rounded to bf16 once misses the 2e-5 gate on the inputs the
+    split meets it on."""
+    b, sq, skv, h, kv, hd, causal = F32_SCHEME_CASES[0]
+    jin, tin = _rand(10, b, sq, skv, h, kv, hd)
+    for x in tin:
+        assert torch.equal(sum(_parts(x, 3)), x)
+    want = _np(jflash(*jin, causal=causal, block_q=sq, block_k=skv))
+    split = np.abs(_np(_f32_scheme(*tin, causal=causal)) - want).max()
+    once = np.abs(_np(_f32_scheme(*tin, causal=causal, parts=1)) - want).max()
+    assert split <= 2e-5 < once, (split, once)

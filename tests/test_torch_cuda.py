@@ -232,7 +232,7 @@ def test_flash_attention_equals_plain(cuda, b, sq, skv, h, kv, hd, dtype, causal
                for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd)))
     before = _launch_counts()
     got = kfa.flash_attention(q, k, v, causal=causal)
-    # f32 runs the CUDA-core kernel, bf16 the tensor-core one
+    # f32 runs the split-operand kernel, bf16 the bf16 one
     assert _launch_counts() == _rose(before, dtype)
     want = ref.flash_attention_ref(q, k, v, causal=causal, block_q=sq, block_k=skv)
     assert got.dtype == dtype and got.shape == q.shape
@@ -252,15 +252,15 @@ def _rose(before, dtype):
     return (f32 + 1, tc) if dtype == torch.float32 else (f32, tc + 1)
 
 
-def _bf16_case(seed, b, sq, skv, h, kv, hd, q_scale=1.0):
+def _case(seed, b, sq, skv, h, kv, hd, q_scale=1.0, dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd)))
-    return tuple(x.to("cuda", torch.bfloat16) for x in (q * q_scale, k, v))
+    return tuple(x.to("cuda", dtype) for x in (q * q_scale, k, v))
 
 
-# (Sq, Skv) of the tensor-core kernel's cases: single rows, ragged 128-row
-# and 128-key tiles, Sq < Skv and Sq > Skv
+# (Sq, Skv) of the tensor-core kernels' cases: single rows, ragged 128-row
+# query tiles and 32-, 64- or 128-key tiles, Sq < Skv and Sq > Skv
 TC_LENGTHS = [(1, 1), (1, 63), (63, 129), (129, 63), (200, 200), (200, 1000), (1000, 200),
               (1000, 1000)]
 
@@ -273,7 +273,7 @@ def test_flash_attention_bf16_tensor_cores_equals_plain(cuda, hd, sq, skv, causa
     of the plain version + 2e-5; 8 query heads over 8, 4 or 1 KV heads
     (GQA groups 1, 2 and 8, by case)."""
     kv = (8, 4, 1)[(TC_LENGTHS.index((sq, skv)) + hd // 16) % 3]
-    q, k, v = _bf16_case(sq + 7 * skv + hd, 2, sq, skv, 8, kv, hd)
+    q, k, v = _case(sq + 7 * skv + hd, 2, sq, skv, 8, kv, hd)
     before = _launch_counts()
     got = kfa.flash_attention(q, k, v, causal=causal)
     assert _launch_counts() == _rose(before, torch.bfloat16)
@@ -286,7 +286,7 @@ def test_flash_attention_bf16_tensor_cores_equals_plain(cuda, hd, sq, skv, causa
 def test_flash_attention_bf16_large_scores_equal_plain(cuda, kv):
     """q scaled 8x: scores of tens, so the running max moves by large steps
     and the rescale of the accumulator matters."""
-    q, k, v = _bf16_case(kv, 1, 1000, 1000, 8, kv, 128, q_scale=8.0)
+    q, k, v = _case(kv, 1, 1000, 1000, 8, kv, 128, q_scale=8.0)
     before = _launch_counts()
     got = kfa.flash_attention(q, k, v, causal=True)
     assert _launch_counts() == _rose(before, torch.bfloat16)
@@ -297,12 +297,76 @@ def test_flash_attention_bf16_large_scores_equal_plain(cuda, kv):
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_flash_attention_bf16_first_token_is_v0(cuda, hd):
     """Causal row 0 sees key 0 only: out[:, 0] is v[:, 0] of its KV head."""
-    q, k, v = _bf16_case(hd, 2, 300, 300, 8, 2, hd)
+    q, k, v = _case(hd, 2, 300, 300, 8, 2, hd)
     before = _launch_counts()
     got = kfa.flash_attention(q, k, v, causal=True)
     assert _launch_counts() == _rose(before, torch.bfloat16)
     torch.testing.assert_close(got[:, 0].float(), v[:, 0].repeat_interleave(4, 1).float(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,skv", TC_LENGTHS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_tensor_cores_equals_plain(cuda, hd, sq, skv, causal):
+    """f32 through the split-operand tensor-core kernel, within 2e-5 of the
+    plain version; 8 query heads over 8, 4 or 1 KV heads (GQA groups 1, 2
+    and 8, by case)."""
+    kv = (8, 4, 1)[(TC_LENGTHS.index((sq, skv)) + hd // 16) % 3]
+    q, k, v = _case(sq + 7 * skv + hd, 2, sq, skv, 8, kv, hd, dtype=torch.float32)
+    before = _launch_counts()
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    assert _launch_counts() == _rose(before, torch.float32)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, block_q=sq, block_k=skv)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert_flash_close(got, want)
+
+
+@pytest.mark.parametrize("kv", [8, 4, 1])
+def test_flash_attention_f32_large_scores_equal_plain(cuda, kv):
+    """q scaled 4x in f32: scores up to tens, so the running max moves by
+    large steps and the rescale of the accumulator matters."""
+    q, k, v = _case(kv, 1, 1000, 1000, 8, kv, 128, q_scale=4.0, dtype=torch.float32)
+    before = _launch_counts()
+    got = kfa.flash_attention(q, k, v, causal=True)
+    assert _launch_counts() == _rose(before, torch.float32)
+    assert_flash_close(got, ref.flash_attention_ref(q, k, v, causal=True, block_q=1000,
+                                                    block_k=1000))
+
+
+def exact_attention(q, k, v):
+    """Causal attention in float64, KV heads repeated: the exact answer to
+    the f32 inputs, up to float64 rounding."""
+    b, sq, h, hd = q.shape
+    kd, vd = (x.double().repeat_interleave(h // k.shape[2], 2) for x in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kd) / np.sqrt(hd)
+    above = torch.ones(sq, k.shape[1], dtype=torch.bool, device=q.device).triu(1)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s.masked_fill(above, -np.inf), -1), vd)
+
+
+@pytest.mark.parametrize("kv", [8, 4, 1])
+def test_flash_attention_f32_large_scores_near_exact(cuda, kv):
+    """q scaled 8x in f32 (the bf16 case's scale): f32's rounding of scores
+    this large moves the plain version itself about 2e-5 from the exact
+    answer, so the kernel is held to the float64 answer, within 2e-5, and
+    to no more than the plain version's distance from it."""
+    q, k, v = _case(kv, 1, 1000, 1000, 8, kv, 128, q_scale=8.0, dtype=torch.float32)
+    got = kfa.flash_attention(q, k, v, causal=True)
+    want = exact_attention(q, k, v)
+    plain = ref.flash_attention_ref(q, k, v, causal=True, block_q=1000, block_k=1000)
+    err = float((got.double() - want).abs().max())
+    assert err <= min(FLASH_F32_TOL, float((plain.double() - want).abs().max())), err
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_attention_f32_first_token_is_v0(cuda, hd):
+    """Causal row 0 sees key 0 only: out[:, 0] is v[:, 0] of its KV head."""
+    q, k, v = _case(hd, 2, 300, 300, 8, 2, hd, dtype=torch.float32)
+    before = _launch_counts()
+    got = kfa.flash_attention(q, k, v, causal=True)
+    assert _launch_counts() == _rose(before, torch.float32)
+    torch.testing.assert_close(got[:, 0], v[:, 0].repeat_interleave(4, 1), rtol=1e-5,
+                               atol=1e-5)
 
 
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
@@ -312,6 +376,9 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 64, 4, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         kfa.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros((1, 64, 4, 64), device=cuda)
+    with pytest.raises(ValueError, match="no keys"):
+        kfa.flash_attention(q, q[:, :0, :2], q[:, :0, :2])
 
 
 def test_chunked_prefill_on_the_card_equals_the_cpu(cuda, monkeypatch):
