@@ -9,8 +9,12 @@ it drives the port's paths at the paper's defaults (d=6, s=3, r=0.5,
 w=1024, t=3):
 
 * the SJPC stream: 2^20 records in 16 batches through ``update_fused`` and
-  the per-level ``update``, ``estimate_batch`` and ``estimate_join_batch``
-  on the stream, and both queries over 1,024 stacked sketches;
+  the per-level ``update`` (each drawing its sampling weights with the
+  ``sample_weights`` kernel), ``estimate_batch`` and ``estimate_join_batch``
+  on the stream, and both queries over 1,024 stacked sketches; one more
+  ``update_fused``, of a batch already on the card, under
+  ``torch.cuda.set_sync_debug_mode("error")``: it reads nothing back to the
+  host;
 * the equal-space estimators (``estimators`` phase): SJPC, reservoir and
   LSH-SS, each at its own factory's size, over 64 streams of 16 rounds of
   4,096 records (the unfused SJPC path on 8 of them), the window algebra,
@@ -66,7 +70,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import configs  # noqa: E402
 from repro_torch import estimators as E  # noqa: E402
 from repro_torch.configs.sjpc_paper import PAPER_DEFAULTS  # noqa: E402
-from repro_torch.core import exact, sjpc  # noqa: E402
+from repro_torch.core import exact, prng, sjpc  # noqa: E402
 from repro_torch.core import projections as proj  # noqa: E402
 from repro_torch.core import sketch as sk  # noqa: E402
 from repro_torch.core.hashing import P31, as_field_tensor  # noqa: E402
@@ -78,13 +82,14 @@ from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import fused_ingest as kfi  # noqa: E402
 from repro_torch.kernels import fused_pairs as kpairs  # noqa: E402
 from repro_torch.kernels import fused_query as kfq  # noqa: E402
+from repro_torch.kernels import sample_weights as ksw  # noqa: E402
 from repro_torch.kernels import sketch_moments as ksm  # noqa: E402
 from repro_torch.kernels import sketch_update as ksu  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.config import compute_dims  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
-from repro_torch.service.ingest import ingest_key_grid  # noqa: E402
+from repro_torch.service.ingest import ingest_key, ingest_key_grid  # noqa: E402
 from repro_torch.sketchstream import monitor as mon  # noqa: E402
 
 # Peak rates of one H100 SXM (NVIDIA data sheet and Hopper white paper):
@@ -105,6 +110,15 @@ F32_SPLIT_PRODUCTS = 6
 # A field element (record column, mask, id, base, hash coefficient,
 # fingerprint) is a uint32 in the functions the kernels compute.
 FIELD_BYTES = 4
+# int32 operations of one threefry2x32 block: 20 rounds of add, rotate and
+# xor, and 12 key additions.
+THREEFRY_OPS = 72
+# (d, s, r) of the sample_weights checks: the paper's defaults, the request
+# monitor's all-ones level, a fractional sample size, and levels of 126
+# combinations (the plain version's argsort branch, the kernel's
+# large-level path); and the steps of the default keys.
+SAMPLE_CONFIGS = ((6, 3, 0.5), (4, 4, 1.0), (5, 2, 0.75), (9, 4, 0.3))
+SAMPLE_STEPS = (0, 1, 2**31 - 1)
 # Spin cycles per second of sleep: at least the SM clock, so that a spin
 # lasts at least as long as asked.
 SLEEP_CYCLES_PER_S = 2.0e9
@@ -155,9 +169,9 @@ MONITOR = mon.SketchMonitorConfig(d=4, s=4, ratio=1.0, width=1024, depth=3, shar
 # bf16 path's.
 BF16_PREFILL_RATIO = 1.25
 
-KERNELS = {"fused_ingest": kfi, "fingerprint": kfp, "fused_query": kfq,
-           "fused_pairs": kpairs, "sketch_update": ksu, "sketch_moments": ksm,
-           "flash_attention": kfa}
+KERNELS = {"fused_ingest": kfi, "sample_weights": ksw, "fingerprint": kfp,
+           "fused_query": kfq, "fused_pairs": kpairs, "sketch_update": ksu,
+           "sketch_moments": ksm, "flash_attention": kfa}
 # Every launch count: (module, attribute, the op whose dispatches it counts).
 # The flash_attention op has two kernels, f32 (split operands) and bf16.
 COUNTS = {name: (module, "launches", name) for name, module in KERNELS.items()}
@@ -168,6 +182,8 @@ SOURCES = {name: f"{name}.cu" for name in COUNTS}
 SOURCES["flash_attention"] = "flash_attention_f32.cu"
 REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:87",
             "fused_ingest": "src/repro/kernels/fused_ingest.py:85",
+            "sample_weights": "src/repro/core/sjpc.py:145 _sample_level_weights (XLA; no "
+                              "Pallas kernel)",
             "fingerprint": "src/repro/kernels/fingerprint.py:41",
             "fused_query": "src/repro/kernels/fused_query.py:54",
             "fused_pairs": "src/repro/kernels/fused_pairs.py:85",
@@ -384,11 +400,22 @@ def phase_kernels(device) -> None:
         n_checks += 1
     ingest_shapes = [(b, w, t) for b in (1, 777) for w in (64, 1024, 65536)
                      for t in (1, 2, 3, 5)]
-    ingest_shapes += [(BATCH, 1024, 3), (BATCH, 65536, 5), (4099, 1024, 2)]
+    # w = 2^14 and 2^16: planes beyond shared memory, global atomics
+    ingest_shapes += [(BATCH, 1024, 3), (BATCH, 65536, 5), (4099, 1024, 2), (BATCH, 1 << 14, 3)]
     for batch, width, depth in ingest_shapes:
         args = ingest_case(rng, device, batch, 6, 3, width, depth)
-        require(equal(kfi.fused_ingest(*args), ref.fused_ingest_ref(*args)),
+        want = ref.fused_ingest_ref(*args)
+        require(equal(kfi.fused_ingest(*args), want),
                 f"fused_ingest B={batch} w={width} t={depth}")
+        # the kernel's own form, the field data as int32 words
+        words = (args[0],) + tuple(kfi.words32(a) for a in args[1:7]) + (args[7],)
+        require(equal(kfi.fused_ingest(*words), want),
+                f"fused_ingest int32 words B={batch} w={width} t={depth}")
+        n_checks += 2
+    for d, s in ((4, 4), (5, 2), (9, 4)):
+        args = ingest_case(rng, device, 4099, d, s, 1024, 3)
+        require(equal(kfi.fused_ingest(*args), ref.fused_ingest_ref(*args)),
+                f"fused_ingest d={d} s={s}")
         n_checks += 1
     args = ingest_case(rng, device, BATCH, 6, 3, 1024, 3, zero_weights=True)
     got = kfi.fused_ingest(*args)
@@ -410,6 +437,7 @@ def phase_kernels(device) -> None:
     require(equal(kfq.fused_query(zeros, zeros), ref.fused_query_ref(zeros, zeros)),
             "fused_query zeros")
     n_checks += 1
+    n_checks += check_sample_weights_grid(device)
     n_checks += check_pairs_grid(rng, device)
     n_checks += check_sketch_update_grid(rng, device)
     n_checks += check_sketch_moments_grid(rng, device)
@@ -531,6 +559,41 @@ def check_flash_grid(rng, device) -> None:
         f"{FLASH_BF16_TOL})")
 
 
+def check_sample_weights_grid(device) -> int:
+    """sample_weights against its plain version, bit for bit: every (d, s,
+    r) of SAMPLE_CONFIGS, B = 1, 4,095 and 65,536, with and without a row
+    mask, under the host's default keys of SAMPLE_STEPS, an ingest key, and
+    the default keys derived on the card from a step tensor (which must
+    equal the host keys' weights)."""
+    n_checks = 0
+    for d, s, r in SAMPLE_CONFIGS:
+        cfg = sjpc.SJPCConfig(d=d, s=s, ratio=r)
+        base = prng.PRNGKey(cfg.seed ^ 0xC0FFEE).to(device)
+        keys = [(f"default_key step {step}", sjpc.default_key(cfg, step).to(device), None)
+                for step in SAMPLE_STEPS]
+        keys.append(("ingest_key", ingest_key(cfg, 3, 5).to(device), None))
+        keys += [(f"step {step} on the card", base,
+                  torch.tensor(step, dtype=torch.int32, device=device)) for step in SAMPLE_STEPS]
+        for batch in (1, 4095, BATCH):
+            mrng = np.random.default_rng(batch + d)
+            mask = torch.from_numpy((mrng.random(batch) < 0.7).astype(np.int32)).to(device)
+            for row_mask in (None, mask):
+                host = {}
+                for name, key, step in keys:
+                    got = ksw.sample_weights(key, step, row_mask, batch, d, s, r)
+                    want = ref.sample_weights_ref(key, step, row_mask, batch, d, s, r)
+                    what = f"sample_weights d={d} s={s} r={r} B={batch} {name} " \
+                           f"mask={row_mask is not None}"
+                    require(equal(got, want), what)
+                    if step is None and name.startswith("default_key"):
+                        host[name.split()[-1]] = got
+                    elif step is not None:
+                        require(equal(got, host[name.split()[1]]),
+                                f"{what}: != the host default key's weights")
+                    n_checks += 1
+    return n_checks
+
+
 def check_pairs_grid(rng, device) -> int:
     """fused_pairs against its plain version: the JAX tests' shapes, the
     reservoir sizes, the empty and duplicate edges, stacked leading dims."""
@@ -601,10 +664,10 @@ def check_sketch_moments_grid(rng, device) -> int:
 
 
 def plain_update_fused(cfg, params, state, values):
-    """``update_fused`` with the kernel replaced by its plain version, the
-    same keys: the reference the stream is held against."""
-    args, B, row_mask = sjpc.fused_ingest_args(cfg, params, state, values)
-    return sjpc.advance(state, ref.fused_ingest_ref(*args), B, row_mask)
+    """``update_fused`` with both kernels replaced by their plain versions,
+    the same keys: the reference the stream is held against."""
+    with oracle_calls():
+        return sjpc.update_fused(cfg, params, state, values, impl=registry.TORCH_REF)
 
 
 def plain_estimate(cfg, counters_a, counters_b, n, join):
@@ -671,7 +734,8 @@ def phase_stream(device, records):
             "stream counters: update_fused != per-level update")
     require(float(state.n) == len(records) and int(state.step) == n_batches, "stream n/step")
     log(f"stream: {len(records)} records in {n_batches} batches of {BATCH}; counters "
-        f"bit-equal to the plain path and to the per-level update")
+        f"bit-equal to the plain path (plain sampling and ingest) and to the per-level "
+        f"update")
     log(f"ingest: {len(records) / ingest_s:.0f} records/s through update_fused "
         f"({ingest_s / n_batches * 1e3:.3f} ms per batch of {BATCH}, host clock)")
 
@@ -700,6 +764,27 @@ def phase_stream(device, records):
         log(f"join s={s}: estimate {join.g[0, i]:.0f} exact {j_true[i]:.0f} "
             f"rel err {abs(join.g[0, i] - j_true[i]) / max(j_true[i], 1.0):.4f}")
     return cfg, params, deltas, ns
+
+
+def check_no_host_reads(cfg, params, device, records) -> None:
+    """One ``update_fused`` of a batch already on the card, under the
+    default key, with ``torch.cuda.set_sync_debug_mode("error")``: any
+    device-to-host read or blocking copy on the path raises.  Its counters
+    equal the plain path's."""
+    _, state = sjpc.init(cfg, device=device)
+    batch = as_field_tensor(records[:BATCH], device)
+    state = sjpc.update_fused(cfg, params, state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sjpc.update_fused(cfg, params, state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = plain_update_fused(cfg, params, state, records[:BATCH])
+    require(same_state(got, want), "update_fused under sync debug mode != the plain path")
+    log("sync: one update_fused of a batch on the card ran under "
+        "set_sync_debug_mode(\"error\") (no host read, no blocking copy); state equal to "
+        "the plain path's")
 
 
 def tenant_stack(deltas, ns):
@@ -964,7 +1049,8 @@ def phase_serve(device) -> dict:
                                         impl=registry.CUDA_SM90)
     flash_plain = registry_now.counter("kernel_dispatch_total", kernel="flash_attention",
                                        impl=registry.TORCH_REF)
-    counts = read_counts("serve", ("flash_attention", "fingerprint"))
+    counts = read_counts("serve", ("flash_attention", "fingerprint", "sample_weights"),
+                         sampling_calls=1)
     require(flash_kernel == cfg.num_layers and flash_plain == 0 and
             counts["flash_attention"] == cfg.num_layers and counts["flash_attention_tc"] == 0,
             f"serve: flash_attention dispatches {flash_kernel} cuda_sm90 / {flash_plain} "
@@ -1210,8 +1296,9 @@ def estimator_kernel_args(device, cfg, params, est_out):
 
     level = proj.lattice(cfg.d, cfg.s)[0]
     values = as_field_tensor(est_out["records"][0][:EST_ROWS], device)
-    key = est_out["keys"][0, 0]
-    weights = sjpc.sample_level_weights(cfg, key, EST_ROWS, None, device)[0].reshape(-1)
+    key = est_out["keys"][0, 0].to(device)
+    weights = ref.sample_weights_ref(key, None, None, EST_ROWS, cfg.d, cfg.s,
+                                     cfg.ratio)[:, 0, :level.num].reshape(-1)
     fp1, fp2 = ref.fingerprint_ref(values, torch.from_numpy(level.masks.astype(np.int64))
                                    .to(device),
                                    torch.from_numpy(level.ids.astype(np.int64)).to(device),
@@ -1227,6 +1314,21 @@ def estimator_kernel_args(device, cfg, params, est_out):
     return pairs, update, moments
 
 
+def sampling_work(cfg, batch: int) -> tuple[int, int]:
+    """(bytes, int32 operations) of one round's sampling weights: the
+    (B, L, m_max) int32 output written once (and 12 bytes of key and
+    step); THREEFRY_OPS per threefry block -- per record one per
+    combination of every level that is not all-ones, and one more per level
+    with a Bernoulli, and 1 + 3L blocks for the keys -- and two (a compare
+    and an add) per pair of a record's combinations in a level."""
+    parts = proj.level_sample_parts(cfg.d, cfg.s, cfg.ratio)
+    m_max = max(m for m, _, _ in parts)
+    drawn = [(m, frac) for m, lo, frac in parts if not (lo >= m and frac == 0.0)]
+    blocks = batch * sum(m + (frac > 0.0) for m, frac in drawn) + 1 + 3 * len(parts)
+    pairs = batch * sum(m * m for m, _ in drawn)
+    return batch * len(parts) * m_max * 4 + 12, THREEFRY_OPS * blocks + 2 * pairs
+
+
 def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
     """Kernel, plain-version and library times at the main path's shapes,
     with the bound of each; ``by_path`` holds each path's launches."""
@@ -1234,27 +1336,42 @@ def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
     iargs, B, _ = sjpc.fused_ingest_args(cfg, params, state, records[:BATCH])
     _, values, masks, ids, _, _, _, wpad = iargs
     batch = records[:BATCH]
-    update_ms, args_ms = wall_ms(lambda: sjpc.update_fused(cfg, params, state, batch),
-                                 lambda: sjpc.fused_ingest_args(cfg, params, state, batch))
+    dev_batch = as_field_tensor(batch, device)
+    update_ms, args_ms, dev_update_ms = wall_ms(
+        lambda: sjpc.update_fused(cfg, params, state, batch),
+        lambda: sjpc.fused_ingest_args(cfg, params, state, batch),
+        lambda: sjpc.update_fused(cfg, params, state, dev_batch))
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    busy_ms, host_ms = device_ms(lambda: sjpc.update_fused(cfg, params, state, dev_batch), 100,
+                                 flush)
     log(f"update_fused per batch of {BATCH}: {update_ms:.3f} ms, of which "
-        f"{args_ms:.3f} ms builds the kernel's arguments (record upload, threefry "
-        f"sampling, ranks, padding; CUDA events around host and device work)")
+        f"{args_ms:.3f} ms builds the kernel's arguments (record upload, the "
+        f"sample_weights launch; CUDA events around host and device work); "
+        f"{dev_update_ms:.3f} ms with the batch already on the card, of which the card works "
+        f"{busy_ms:.4f} ms (device time of all its launches, L2 flushed) and the host "
+        f"{host_ms:.4f} ms per call: device idle share {1 - busy_ms / dev_update_ms:.3f}")
     L, t, w = state.counters.shape
     ks = [cfg.level_k(i) for i in range(L)]
     live = (wpad != 0).sum(dim=(0, 2)).tolist()
     ingest_ops = sum(n_live * (2 * k + 12 * t) for n_live, k in zip(live, ks))
-    # the bytes of the function, field data at its uint32 width (the
-    # kernel's int64 words carry twice that; see PERF.md)
-    ingest_bytes = ((values.numel() + masks.numel() + ids.numel() + 2
+    # the bytes of the function, field data at its uint32 width: the
+    # records, each level's C(d, k) live combinations of the tables and of
+    # the weights (the padded slots carry weight 0 by the op's contract and
+    # are never read), the coefficients, the counters read and written
+    n_live = sum(proj.padded_lattice(cfg.d, cfg.s).nums)
+    ingest_bytes = ((values.numel() + n_live * (cfg.d + 1) + 2
                      + 2 * params.bucket_coeffs.numel()) * FIELD_BYTES
-                    + wpad.numel() * 4 + 2 * state.counters.numel() * 4)
+                    + B * n_live * 4 + 2 * state.counters.numel() * 4)
+    sargs = (prng.PRNGKey(cfg.seed ^ 0xC0FFEE).to(device), state.step, None, B, cfg.d, cfg.s,
+             cfg.ratio)
+    sample_bytes, sample_ops = sampling_work(cfg, B)
 
     level0 = proj.lattice(cfg.d, cfg.s)[0]
-    fmasks = masks[0, :level0.num].contiguous()
-    fids = ids[0, :level0.num].contiguous()
-    fargs = (values, fmasks, fids, params.fp_bases)
+    fmasks = torch.from_numpy(level0.masks.astype(np.int64)).to(device)
+    fids = torch.from_numpy(level0.ids.astype(np.int64)).to(device)
+    fargs = (dev_batch, fmasks, fids, params.fp_bases)
     fp_ops = 2 * level0.k * B * level0.num
-    fp_bytes = (values.numel() + fmasks.numel() + fids.numel() + 2
+    fp_bytes = (dev_batch.numel() + fmasks.numel() + fids.numel() + 2
                 + 2 * B * level0.num) * FIELD_BYTES
 
     q_rows = tenants.shape[0] * L * t
@@ -1263,7 +1380,6 @@ def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
     tenants_f32 = tenants.float()
     pairs, update, moments = estimator_kernel_args(device, cfg, params, est_out)
     moments_f32 = moments[0][0].float()
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
 
     no_call = "no single PyTorch call computes it"
     vecdot = "torch.linalg.vecdot on float32 copies"
@@ -1271,6 +1387,9 @@ def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
     for name, fn, plain, (args, nbytes, ops), library, library_note in (
             ("fused_ingest", kfi.fused_ingest, ref.fused_ingest_ref,
              (iargs, ingest_bytes, ingest_ops), None, no_call),
+            ("sample_weights", ksw.sample_weights, ref.sample_weights_ref,
+             (sargs, sample_bytes, sample_ops), None,
+             "no single PyTorch call replays threefry2x32"),
             ("fingerprint", kfp.fingerprint, ref.fingerprint_ref, (fargs, fp_bytes, fp_ops),
              None, no_call),
             ("fused_query", kfq.fused_query, ref.fused_query_ref,
@@ -1303,6 +1422,15 @@ def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
             f"per call), plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}: {nbytes} B, {ops} int ops)"
             + (f", library {lib:.4f} ms" if lib is not None else ""))
+    # fused_ingest on the field data it reads, int32 words, without the
+    # wrapper's narrowing of the records, which the row's ms includes
+    words = iargs[:1] + tuple(kfi.words32(a) for a in iargs[1:7]) + iargs[7:]
+    w1, _ = device_ms(lambda: kfi.fused_ingest(*words), 100, flush)
+    w2, _ = device_ms(lambda: kfi.fused_ingest(*words), 100, flush)
+    require(equal(kfi.fused_ingest(*words), ref.fused_ingest_ref(*iargs)),
+            "fused_ingest on int32 words: timed output differs from the plain version")
+    next(row for row in rows if row["name"] == "fused_ingest")["words_ms"] = min(w1, w2)
+    log(f"time fused_ingest on int32 words (the kernel alone): {w1:.4f}/{w2:.4f} ms")
     rows += flash_rows(device, by_path, flush)
     return rows
 
@@ -1315,10 +1443,12 @@ def reset_counts() -> None:
     metrics.default_registry().clear()
 
 
-def read_counts(path: str, kernels) -> dict[str, int]:
+def read_counts(path: str, kernels, sampling_calls: int | None = None) -> dict[str, int]:
     """The launches of the path just run.  Raises unless each of its
     ``kernels`` launched, and unless every dispatch of the path resolved to
-    the hand-written kernel."""
+    the hand-written kernel; with ``sampling_calls``, unless the path's
+    ``sample_weights`` dispatches and launches were exactly that many (one
+    per SJPC update call)."""
     torch.cuda.synchronize()
     launches = {name: getattr(module, attr) for name, (module, attr, _) in COUNTS.items()}
     dispatch: dict[str, float] = {}
@@ -1334,6 +1464,11 @@ def read_counts(path: str, kernels) -> dict[str, int]:
     for op in KERNELS:
         count = sum(launches[name] for name, (_, _, of) in COUNTS.items() if of == op)
         require(dispatch.get(op, 0) >= count, f"{path}: {op} launched without a dispatch")
+    if sampling_calls is not None:
+        require(dispatch.get("sample_weights", 0) == launches["sample_weights"]
+                == sampling_calls,
+                f"{path}: {dispatch.get('sample_weights', 0)} sample_weights dispatches and "
+                f"{launches['sample_weights']} launches for {sampling_calls} SJPC update calls")
     return launches
 
 
@@ -1354,11 +1489,20 @@ def main() -> int:
     reset_counts()
     cfg, params, deltas, ns = phase_stream(device, records)
     tenants = phase_tenants(cfg, deltas, ns)
-    by_path = {"stream": read_counts("stream", ("fused_ingest", "fingerprint", "fused_query"))}
+    n_batches = RECORDS // BATCH
+    by_path = {"stream": read_counts("stream", ("fused_ingest", "sample_weights", "fingerprint",
+                                                "fused_query"),
+                                     # update_fused and the per-level update per batch
+                                     sampling_calls=2 * n_batches)}
+    check_no_host_reads(cfg, params, device, records)
     reset_counts()
     est_out = phase_estimators(device, cfg)
+    # every SJPC ingest call: the fused path's rounds of A, the rest of the
+    # full stream and B over every stream, and the unfused path's rounds
+    sjpc_calls = (EST_ROUNDS + EST_ROUNDS // 2) * EST_STREAMS + EST_ROUNDS * UNFUSED_STREAMS
     by_path["estimators"] = read_counts("estimators", tuple(k for k in KERNELS
-                                                             if k != "flash_attention"))
+                                                             if k != "flash_attention"),
+                                        sampling_calls=sjpc_calls)
     serve_out = phase_serve(device)
     by_path["serve"] = serve_out["launches"]
     by_path["serve_bf16"] = serve_out["launches_bf16"]

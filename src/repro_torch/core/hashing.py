@@ -69,11 +69,13 @@ def random_field_elements(rng: np.random.Generator, shape) -> np.ndarray:
 def as_field_tensor(x, device) -> torch.Tensor:
     """uint32 data (numpy array or tensor, any integer dtype) as an int64
     tensor in [0, 2^32) on ``device`` -- negative int32 wraps, like JAX's
-    ``astype(uint32)``."""
-    if isinstance(x, torch.Tensor):
-        return torch.bitwise_and(x.to(device=device, dtype=torch.int64), 0xFFFFFFFF)
-    arr = np.asarray(x).astype(np.uint32).astype(np.int64)
-    return torch.from_numpy(arr).to(device)
+    ``astype(uint32)``.  Host data goes to ``device`` as its 4-byte words
+    and is widened there (half the bytes of an int64 upload:
+    ``tools/ab_record_upload.py``)."""
+    if not isinstance(x, torch.Tensor):
+        words = np.require(np.asarray(x).astype(np.uint32, copy=False), requirements=("C", "W"))
+        x = torch.from_numpy(words.view(np.int32)).to(device)
+    return torch.bitwise_and(x.to(device=device, dtype=torch.int64), 0xFFFFFFFF)
 
 
 # ---------------------------------------------------------------------------

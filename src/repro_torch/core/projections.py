@@ -9,7 +9,9 @@ random l_i-subset.  The result is a dense (batch, M) {0,1} weight matrix.
 
 The lattice tables are numpy (copied from the JAX package); the sampling
 replays ``jax.random`` (:mod:`.prng`) so the weights equal the reference's
-under the same key.
+under the same key.  :func:`padded_level_weights` is the plain version of
+the ``sample_weights`` kernel (``kernels/csrc/sample_weights.cu``), which
+draws every level's weights on the card.
 """
 from __future__ import annotations
 
@@ -181,3 +183,28 @@ def sample_combo_weights(key: torch.Tensor, batch: int, num_combos: int, ratio: 
         u = prng.uniform(k_round, (batch, 1), device)
         l_i = l_i + (u < torch.tensor(frac, dtype=torch.float32)).to(torch.int32)
     return (ranks < l_i).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def level_sample_parts(d: int, s: int, ratio: float) -> tuple:
+    """Per level s..d: (M, lo, frac), M = C(d, k) and the parts of its
+    stochastically rounded sample size."""
+    return tuple((lv.num,) + sample_size_parts(lv.num, ratio) for lv in lattice(d, s))
+
+
+def padded_level_weights(key: torch.Tensor, batch: int, d: int, s: int, ratio: float,
+                         row_mask: torch.Tensor | None = None, device=None) -> torch.Tensor:
+    """(B, L, m_max) int32 weights of levels s..d over the padded lattice,
+    as the JAX package's ``sjpc._sample_level_weights`` draws them (level
+    idx with ``fold_in(key, idx)``, rows multiplied by ``row_mask``) and
+    ``jnp.pad`` pads them before ``fused_ingest_pallas``: 0 in the padded
+    slots."""
+    levels = lattice(d, s)
+    m_max = max(lv.num for lv in levels)
+    weights = []
+    for idx, level in enumerate(levels):
+        w = sample_combo_weights(prng.fold_in(key, idx), batch, level.num, ratio, device)
+        if row_mask is not None:
+            w = w * row_mask[:, None]
+        weights.append(torch.nn.functional.pad(w, (0, m_max - level.num)))
+    return torch.stack(weights, dim=1).contiguous()

@@ -17,13 +17,14 @@ disjoint sub-streams merge by addition.  The similarity *join* estimator
 parameters; Y_k is then the sketch inner product and the inversion drops
 the self-pair term.
 
-On CUDA, :func:`update_fused` runs the ``fused_ingest`` kernel, the
-per-level :func:`update` the ``fingerprint`` kernel (and, through its
-``update_fn`` hook, the ``sketch_update`` kernel), and the batched queries
-the ``fused_query`` kernel; on the CPU the same functions run the kernels'
-plain versions.  Under the default keys the counters equal the JAX
-package's bit for bit: the parameters come from the same numpy draws and
-the sampling replays ``jax.random`` (:mod:`.prng`).
+On CUDA, both update functions draw their sampling weights with the
+``sample_weights`` kernel; :func:`update_fused` runs the ``fused_ingest``
+kernel, the per-level :func:`update` the ``fingerprint`` kernel (and,
+through its ``update_fn`` hook, the ``sketch_update`` kernel), and the
+batched queries the ``fused_query`` kernel; on the CPU the same functions
+run the kernels' plain versions.  Under the default keys the counters
+equal the JAX package's bit for bit: the parameters come from the same
+numpy draws and the sampling replays ``jax.random`` (:mod:`.prng`).
 """
 from __future__ import annotations
 
@@ -104,7 +105,10 @@ def init(cfg: SJPCConfig, device=None) -> tuple[SJPCParams, SJPCState]:
 
 def default_key(cfg: SJPCConfig, step) -> torch.Tensor:
     """The sampling key of round ``step``:
-    ``fold_in(PRNGKey(seed ^ 0xC0FFEE), step)``."""
+    ``fold_in(PRNGKey(seed ^ 0xC0FFEE), step)``.  The update functions
+    derive it where the draws run, from ``state.step`` (see
+    ``kernels.ops.sample_weights``); this host version is for callers that
+    want the key itself."""
     return prng.fold_in(prng.PRNGKey(cfg.seed ^ 0xC0FFEE), int(step))
 
 
@@ -120,29 +124,29 @@ def _lattice_tensors(d: int, s: int, device: torch.device):
     return levels, padded
 
 
+@functools.lru_cache(maxsize=None)
+def _base_key(seed: int, device: torch.device) -> torch.Tensor:
+    """``PRNGKey(seed ^ 0xC0FFEE)`` on ``device``, uploaded once."""
+    return prng.PRNGKey(seed ^ 0xC0FFEE).to(device)
+
+
 def _prepare(cfg: SJPCConfig, state: SJPCState, values, key, row_mask):
+    """(values, B, key, step, row_mask) of one round on the counters'
+    device.  Without a ``key``, the round's key is the base key folded with
+    ``state.step`` where the draws run (``step`` is then that tensor), so
+    nothing is read back to the host."""
     device = state.counters.device
     values = as_field_tensor(values, device)
     B = values.shape[0]
+    step = None
     if key is None:
-        key = default_key(cfg, state.step)
+        key, step = _base_key(cfg.seed, device), state.step
+    elif not (isinstance(key, torch.Tensor) and key.dtype == torch.int64
+              and key.device == device):
+        key = as_field_tensor(key, device)
     if row_mask is not None:
         row_mask = torch.as_tensor(row_mask).to(device=device, dtype=torch.int32).reshape(B)
-    return values, B, key, row_mask
-
-
-def sample_level_weights(cfg: SJPCConfig, key: torch.Tensor, batch: int,
-                         row_mask: torch.Tensor | None, device) -> list[torch.Tensor]:
-    """Per-level (B, C(d,k)) int32 sampling weights: level idx draws with
-    ``fold_in(key, idx)``, and masked rows get weight 0."""
-    weights = []
-    for idx, level in enumerate(proj.lattice(cfg.d, cfg.s)):
-        w = proj.sample_combo_weights(prng.fold_in(key, idx), batch, level.num, cfg.ratio,
-                                      device)
-        if row_mask is not None:
-            w = w * row_mask[:, None]
-        weights.append(w)
-    return weights
+    return values, B, key, step, row_mask
 
 
 def advance(state: SJPCState, counters: torch.Tensor, B: int,
@@ -153,11 +157,9 @@ def advance(state: SJPCState, counters: torch.Tensor, B: int,
     # content no-op and consumes no randomness, so it must not advance the
     # replay coordinate either
     if row_mask is None:
-        n_new = torch.tensor(float(B), dtype=torch.float32, device=state.n.device)
-        step_inc = 1
-    else:
-        n_new = row_mask.sum().to(torch.float32)
-        step_inc = (n_new > 0).to(torch.int32)
+        return SJPCState(counters=counters, n=state.n + float(B), step=state.step + 1)
+    n_new = row_mask.sum().to(torch.float32)
+    step_inc = (n_new > 0).to(torch.int32)
     return SJPCState(counters=counters, n=state.n + n_new, step=state.step + step_inc)
 
 
@@ -170,37 +172,40 @@ def update(cfg: SJPCConfig, params: SJPCParams, state: SJPCState, values,
     ``key`` is key data ((2,) int64, as ``jax.random.key_data`` gives it);
     by default it is :func:`default_key` of ``state.step``.  ``row_mask``
     ((B,), optional) marks valid rows; rows with mask 0 contribute nothing
-    to the counters or to ``n``.  The fingerprints of each level go through
-    ``kernels.ops.fingerprint`` (``impl`` names its implementation; None
-    resolves from the device).  ``update_fn(counters, fp1, fp2,
+    to the counters or to ``n``.  The weights come from the
+    ``sample_weights`` op and the fingerprints of each level from
+    ``kernels.ops.fingerprint`` (``impl`` names the implementation of both;
+    None resolves from the device).  ``update_fn(counters, fp1, fp2,
     level_params, weights) -> counters`` does the scatter: by default the
     plain ``sketch.sketch_update``, as in the JAX package;
     ``kernels.ops.make_sjpc_update_fn()`` runs the ``sketch_update`` op.
     """
-    values, B, key, row_mask = _prepare(cfg, state, values, key, row_mask)
+    values, B, key, step, row_mask = _prepare(cfg, state, values, key, row_mask)
     device = state.counters.device
     update_fn = update_fn or sk.sketch_update
     levels, _ = _lattice_tensors(cfg.d, cfg.s, device)
-    level_weights = sample_level_weights(cfg, key, B, row_mask, device)
+    weights = ops.sample_weights(key, B, cfg.d, cfg.s, cfg.ratio, step=step, row_mask=row_mask,
+                                 impl=impl)
     new_counters = []
-    for idx, ((masks, ids), weights) in enumerate(zip(levels, level_weights)):
+    for idx, (masks, ids) in enumerate(levels):
         fp1, fp2 = ops.fingerprint(values, masks, ids, params.fp_bases, impl=impl)
         level_params = sk.SketchParams(params.bucket_coeffs[idx], params.sign_coeffs[idx])
-        new_counters.append(update_fn(state.counters[idx], fp1, fp2, level_params, weights))
+        new_counters.append(update_fn(state.counters[idx], fp1, fp2, level_params,
+                                      weights[:, idx, :ids.shape[0]]))
     return advance(state, torch.stack(new_counters), B, row_mask)
 
 
 def fused_ingest_args(cfg: SJPCConfig, params: SJPCParams, state: SJPCState, values,
-                      key: torch.Tensor | None = None, row_mask=None):
+                      key: torch.Tensor | None = None, row_mask=None,
+                      impl: str | None = None):
     """The ``fused_ingest`` arguments of one round over the padded lattice,
-    with the batch size and the row mask: ``(args, B, row_mask)``."""
-    values, B, key, row_mask = _prepare(cfg, state, values, key, row_mask)
-    device = state.counters.device
-    _, (masks, ids) = _lattice_tensors(cfg.d, cfg.s, device)
-    # per-level weights padded to m_max combinations: (B, L, m_max), 0 in padded slots
-    wpad = torch.stack([torch.nn.functional.pad(w, (0, masks.shape[1] - w.shape[1]))
-                        for w in sample_level_weights(cfg, key, B, row_mask, device)],
-                       dim=1).contiguous()
+    with the batch size and the row mask: ``(args, B, row_mask)``.  The
+    weights come from the ``sample_weights`` op (``impl`` names its
+    implementation)."""
+    values, B, key, step, row_mask = _prepare(cfg, state, values, key, row_mask)
+    _, (masks, ids) = _lattice_tensors(cfg.d, cfg.s, state.counters.device)
+    wpad = ops.sample_weights(key, B, cfg.d, cfg.s, cfg.ratio, step=step, row_mask=row_mask,
+                              impl=impl)
     args = (state.counters, values, masks, ids, params.fp_bases, params.bucket_coeffs,
             params.sign_coeffs, wpad)
     return args, B, row_mask
@@ -211,8 +216,10 @@ def update_fused(cfg: SJPCConfig, params: SJPCParams, state: SJPCState, values,
                  row_mask=None, impl: str | None = None) -> SJPCState:
     """:func:`update` as one fused ingest launch over the padded lattice;
     bit-identical counters under the same key.  ``impl`` names the
-    ``fused_ingest`` implementation (None resolves from the device)."""
-    args, B, row_mask = fused_ingest_args(cfg, params, state, values, key, row_mask)
+    implementation of the ``sample_weights`` and ``fused_ingest`` ops (None
+    resolves from the device).  With the default key and the records on
+    the card, nothing is read back to the host."""
+    args, B, row_mask = fused_ingest_args(cfg, params, state, values, key, row_mask, impl)
     return advance(state, ops.fused_ingest(*args, impl=impl), B, row_mask)
 
 

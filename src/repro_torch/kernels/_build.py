@@ -25,8 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fingerprint", "fused_ingest", "fused_pairs", "fused_query", "sketch_moments",
-           "sketch_update", "flash_attention_f32", "flash_attention_tc")
+SOURCES = ("fingerprint", "fused_ingest", "fused_pairs", "fused_query", "sample_weights",
+           "sketch_moments", "sketch_update", "flash_attention_f32", "flash_attention_tc")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 P = ctypes.c_void_p
@@ -36,9 +36,11 @@ I64 = ctypes.c_longlong
 SIGNATURES = {
     "fingerprint": ("sjpc_fingerprint", [P, P, P, P, P, P, I64, I32, I32, I32, P]),
     "fused_ingest": ("sjpc_fused_ingest",
-                     [P, P, P, P, P, P, P, P, I64, I32, I32, I32, I32, I32, I32, P]),
+                     [P, P, P, P, P, P, P, P, P, I64, I32, I32, I32, I32, I32, I32, I64,
+                      I32, P]),
     "fused_pairs": ("sjpc_fused_pairs", [P, P, P, I64, I32, I32, I32, P]),
     "fused_query": ("sjpc_fused_query", [P, P, P, I64, I32, I32, P]),
+    "sample_weights": ("sjpc_sample_weights", [P, P, P, P, P, P, P, I64, I32, I32, I32, P]),
     "sketch_moments": ("sjpc_sketch_moments", [P, P, P, I32, I32, I32, P]),
     "sketch_update": ("sjpc_sketch_update", [P, P, P, P, P, P, I64, I32, I32, I32, P]),
     "flash_attention_f32": ("flash_attention_f32_fwd",

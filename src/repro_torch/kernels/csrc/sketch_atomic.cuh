@@ -1,5 +1,5 @@
 // The atomic Fast-AGMS update of a (t, w) counter plane, as device
-// functions shared by fused_ingest.cu (one plane per lattice level) and
+// functions shared by fused_ingest.cu (every lattice level's plane) and
 // sketch_update.cu (one plane).
 //
 // Per key and depth row: bucket = cw_hash_pair(fp1, fp2, bucket coeffs)
@@ -23,7 +23,8 @@ namespace sjpc {
 constexpr int kSmemTileBytes = 48 * 1024;
 
 // Shared bytes of one plane's hash coefficients: bucket [0, 8t) and sign
-// [8t, 16t) as uint32.
+// [8t, 16t) as uint32 (each group of 4 read as one 16-byte word, so the
+// block of coefficients starts 16-byte aligned).
 __host__ __device__ constexpr size_t coeff_bytes(int t) { return 16u * t * sizeof(uint32_t); }
 
 // Whether the coefficients and a (t, w) tile fit in 48 KB of shared memory.
@@ -31,10 +32,12 @@ inline bool tile_fits(int t, int w) {
   return coeff_bytes(t) + static_cast<size_t>(t) * w * sizeof(uint32_t) <= kSmemTileBytes;
 }
 
-// Load one plane's (t, 2, 4) bucket and sign coefficients (int64 words)
-// into coef[0, 16t) as uint32; the CTA must __syncthreads() before use.
-__device__ __forceinline__ void load_coeffs(uint32_t* coef, const int64_t* bcoef,
-                                            const int64_t* scoef, int t) {
+// Load one plane's (t, 2, 4) bucket and sign coefficients (uint32 words
+// stored as int64 or int32) into coef[0, 16t) as uint32; the CTA must
+// __syncthreads() before use.
+template <typename Word>
+__device__ __forceinline__ void load_coeffs(uint32_t* coef, const Word* bcoef,
+                                            const Word* scoef, int t) {
   for (int i = threadIdx.x; i < 8 * t; i += blockDim.x) {
     coef[i] = static_cast<uint32_t>(bcoef[i]);
     coef[8 * t + i] = static_cast<uint32_t>(scoef[i]);
@@ -51,9 +54,10 @@ __device__ __forceinline__ void sketch_add(uint32_t* plane, const uint32_t* coef
                                            uint32_t fp1, uint32_t fp2, int32_t weight) {
   const uint32_t wmask = static_cast<uint32_t>(w - 1);
   const uint32_t up = static_cast<uint32_t>(weight);
+  const Powers x = powers(fp1), y = powers(fp2);
   for (int row = 0; row < t; ++row) {
-    const uint32_t hb = cw_hash_pair(fp1, fp2, coef + row * 8);
-    const uint32_t hs = cw_hash_pair(fp1, fp2, coef + 8 * t + row * 8);
+    const uint32_t hb = cw_hash_pair(x, y, coef + row * 8);
+    const uint32_t hs = cw_hash_pair(x, y, coef + 8 * t + row * 8);
     atomicAdd(plane + row * w + (hb & wmask), (hs & 1u) ? 0u - up : up);
   }
 }

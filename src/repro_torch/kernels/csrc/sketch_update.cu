@@ -35,7 +35,7 @@ sketch_update_kernel(int32_t* __restrict__ counters, const int64_t* __restrict__
                      const int64_t* __restrict__ fp2, const int32_t* __restrict__ weights,
                      const int64_t* __restrict__ bcoef, const int64_t* __restrict__ scoef,
                      int64_t n, int t, int w) {
-  extern __shared__ uint32_t smem[];
+  extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* coef = smem;
   sjpc::load_coeffs(coef, bcoef, scoef, t);
   uint32_t* plane = reinterpret_cast<uint32_t*>(counters);

@@ -5,14 +5,103 @@ Replaces the Pallas TPU kernel ``fused_ingest_pallas`` of the JAX package.
 This is the op's ``cuda_sm90`` tier in the kernel registry
 (``kernels/ops.py``); its oracle is the plain version in :mod:`.ref`.  It
 takes CUDA tensors only, launches the kernel or raises.
+
+The kernel reads field data as uint32 words in int32 tensors.  The wrapper
+narrows what it is given: the records on every call, the lattice tables
+and hash parameters once per tensor (kept while the tensor is the same
+object, unchanged in place).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
+from ..core import projections as proj
 from . import _build
 
 launches = 0   # kernel launches since the last reset
+
+MAX_LEVELS = 16   # lattice levels the kernel takes
+MAX_D = 32        # record columns (a combination is a 32-bit column mask)
+ITEMS_PER_CTA = 1024   # a CTA's least work, in (record, live slot) items
+CTAS_PER_SM = 2
+ITEM_LIMIT = 2**32     # a CTA numbers its items in 32 bits
+CACHE_SIZE = 64        # narrowed tensors kept
+
+
+def words32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 field data as the kernel reads it: int32 tensors as they are,
+    int64 ones cut to their low 32 bits."""
+    return x if x.dtype == torch.int32 else x.to(torch.int32)
+
+
+_cache: dict[tuple, tuple] = {}
+
+
+def _once(make, *xs):
+    """``make(*xs)``, computed again only when one of the tensors ``xs`` is
+    another object or was changed in place (its version counter; tensors
+    made under ``torch.inference_mode`` have none and are never kept).  The
+    CACHE_SIZE results used last are kept."""
+    if any(x.is_inference() for x in xs):
+        return make(*xs)
+    key = (make.__name__,) + tuple(id(x) for x in xs)
+    hit = _cache.pop(key, None)
+    if hit is not None and all(a is x and v == x._version for (a, v), x in zip(hit[0], xs)):
+        _cache[key] = hit
+        return hit[1]
+    out = make(*xs)
+    if len(_cache) >= CACHE_SIZE:
+        _cache.pop(next(iter(_cache)))
+    _cache[key] = (tuple((x, x._version) for x in xs), out)
+    return out
+
+
+def lattice_table(masks: torch.Tensor, ids: torch.Tensor):
+    """(masks, ids) as int32 words and each level's live combination count
+    (a host array), for a table that is the padded lattice of levels
+    s..d with s = d - L + 1: each level's C(d, k) combinations first, in
+    ``projections.padded_lattice``'s order.  The kernel walks only those;
+    the slots past them must carry weight 0.  Raises ``ValueError`` for
+    any other table.  Reads the table back to the host once."""
+    if masks.ndim != 3 or ids.shape != masks.shape[:2]:
+        raise ValueError(f"masks {tuple(masks.shape)} and ids {tuple(ids.shape)}: expected "
+                         f"(L, m_max, d) and (L, m_max)")
+    L, m_max, d = masks.shape
+    s = d - L + 1
+    pad = proj.padded_lattice(d, s) if 1 <= s <= d else None
+    host_masks = masks.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    host_ids = ids.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+    if pad is None or m_max != pad.m_max or not all(
+            np.array_equal(host_masks[lvl, :n], pad.masks[lvl, :n])
+            and np.array_equal(host_ids[lvl, :n], pad.ids[lvl, :n])
+            for lvl, n in enumerate(pad.nums)):
+        raise ValueError(f"masks {tuple(masks.shape)} and ids {tuple(ids.shape)} are not the "
+                         f"padded lattice of levels d - L + 1..d; the fused_ingest kernel "
+                         f"takes only that")
+    return words32(masks).contiguous(), words32(ids).contiguous(), \
+        (ctypes.c_int * L)(*pad.nums)
+
+
+def launch_grid(batch: int, slots: int, sms: int) -> tuple[int, int]:
+    """(CTAs, records per CTA) of one launch: at most CTAS_PER_SM CTAs per
+    SM, each over a contiguous range of records and at least ITEMS_PER_CTA
+    (record, live slot) items.  Raises ``ValueError`` when a CTA's items
+    reach 2^32, since the kernel numbers them in 32 bits."""
+    ctas = max(1, min(-(-batch * slots // ITEMS_PER_CTA), CTAS_PER_SM * sms))
+    rows = -(-batch // ctas)
+    if rows * slots >= ITEM_LIMIT:
+        raise ValueError(f"{batch} records of {slots} live slots give a CTA {rows * slots} "
+                         f"items; the fused_ingest kernel numbers at most 2^32 - 1")
+    return -(-batch // rows), rows
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_ingest(counters: torch.Tensor, values: torch.Tensor, masks: torch.Tensor,
@@ -20,10 +109,11 @@ def fused_ingest(counters: torch.Tensor, values: torch.Tensor, masks: torch.Tens
                  sign_coeffs: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """One launch: records -> fingerprints -> every level's sketch.
 
-    counters (L, t, w) int32; values (B, d) int64; masks (L, m_max, d) and
-    ids (L, m_max) int64, the padded lattice; bases (2,) int64;
-    bucket/sign_coeffs (L, t, 2, 4) int64; weights (B, L, m_max) int32, 0
-    in padded slots and masked-out rows.  Returns new (L, t, w) counters.
+    counters (L, t, w) int32; values (B, d), masks (L, m_max, d) and ids
+    (L, m_max) (the padded lattice, see :func:`lattice_table`), bases
+    (2,), bucket/sign_coeffs (L, t, 2, 4): uint32 field data, int64 or
+    int32 words; weights (B, L, m_max) int32, 0 in padded slots and
+    masked-out rows.  Returns new (L, t, w) counters.
     """
     global launches
     device = counters.device
@@ -33,20 +123,28 @@ def fused_ingest(counters: torch.Tensor, values: torch.Tensor, masks: torch.Tens
     m_max = ids.shape[1]
     if w & (w - 1):
         raise ValueError(f"sketch width must be a power of two, got {w}")
+    if L > MAX_LEVELS or d > MAX_D or B >= 2**31:
+        raise ValueError(f"the fused_ingest kernel takes up to {MAX_LEVELS} levels, {MAX_D} "
+                         f"columns and 2^31 records; got {L}, {d} and {B}")
+    masks, ids, live = _once(lattice_table, masks, ids)
+    bases, bucket_coeffs, sign_coeffs = (_once(words32, x)
+                                         for x in (bases, bucket_coeffs, sign_coeffs))
+    values = words32(values)
     _build.require("counters", counters, torch.int32, (L, t, w), device)
-    _build.require("values", values, torch.int64, (B, d), device)
-    _build.require("masks", masks, torch.int64, (L, m_max, d), device)
-    _build.require("ids", ids, torch.int64, (L, m_max), device)
-    _build.require("bases", bases, torch.int64, (2,), device)
-    _build.require("bucket_coeffs", bucket_coeffs, torch.int64, (L, t, 2, 4), device)
-    _build.require("sign_coeffs", sign_coeffs, torch.int64, (L, t, 2, 4), device)
+    _build.require("values", values, torch.int32, (B, d), device)
+    _build.require("masks", masks, torch.int32, (L, m_max, d), device)
+    _build.require("ids", ids, torch.int32, (L, m_max), device)
+    _build.require("bases", bases, torch.int32, (2,), device)
+    _build.require("bucket_coeffs", bucket_coeffs, torch.int32, (L, t, 2, 4), device)
+    _build.require("sign_coeffs", sign_coeffs, torch.int32, (L, t, 2, 4), device)
     _build.require("weights", weights, torch.int32, (B, L, m_max), device)
-    out = torch.empty_like(counters)
-    out.copy_(counters)
-    if B * m_max * L == 0:
+    out = counters.clone()
+    if B == 0:
         return out
+    ctas, rows = launch_grid(B, sum(live), _sm_count(device))
     _build.launch("fused_ingest", device, out.data_ptr(), values.data_ptr(), masks.data_ptr(),
                   ids.data_ptr(), bases.data_ptr(), bucket_coeffs.data_ptr(),
-                  sign_coeffs.data_ptr(), weights.data_ptr(), B, L, m_max, d, t, w)
+                  sign_coeffs.data_ptr(), weights.data_ptr(), live, B, L, m_max, d, t, w,
+                  ctas, rows)
     launches += 1
     return out

@@ -2,11 +2,13 @@
 attention), dispatched through the kernel registry (:mod:`.registry`).
 
 The same names and positional arguments as the JAX package's
-``kernels.ops``.  Every op registers two implementations: ``torch_ref``
-(the plain version of :mod:`.ref`, any device) and ``cuda_sm90`` (the
-hand-written kernel, CUDA tensors only).  A call goes by the device of its
-tensors -- CPU tensors run the plain version, CUDA tensors the kernel --
-unless the caller names ``impl=`` for that call.  Every call counts
+``kernels.ops``, and ``sample_weights``, SJPC's projection sampling (in the
+JAX package plain jnp code that XLA compiles).  Every op registers two
+implementations: ``torch_ref`` (the plain version of :mod:`.ref`, any
+device) and ``cuda_sm90`` (the hand-written kernel, CUDA tensors only).  A
+call goes by the device of its tensors -- CPU tensors run the plain
+version, CUDA tensors the kernel -- unless the caller names ``impl=`` for
+that call.  Every call counts
 ``kernel_dispatch_total{kernel, impl}`` in the default metrics registry.
 
 Inputs may be tensors or numpy arrays; numpy arrays go to the device of the
@@ -27,6 +29,7 @@ from . import fused_ingest as _fused_ingest
 from . import fused_pairs as _fused_pairs
 from . import fused_query as _fused_query
 from . import ref
+from . import sample_weights as _sample_weights
 from . import sketch_moments as _sketch_moments
 from . import sketch_update as _sketch_update
 from .registry import kernel_registry
@@ -77,12 +80,31 @@ def fused_ingest(counters, values, masks, ids, bases, bucket_coeffs, sign_coeffs
 
     Padded-lattice layout (``projections.padded_lattice``): counters
     (L, t, w), values (B, d), masks (L, m_max, d), ids (L, m_max), coeffs
-    (L, t, 2, 4), weights (B, L, m_max).  Returns new counters.
+    (L, t, 2, 4), weights (B, L, m_max), 0 in the padded slots (the kernel
+    reads only each level's C(d, k) combinations).  Returns new counters.
     """
     device = _device(counters, values)
     run = _dispatch("fused_ingest", device, impl)
     field = (_field(x, device) for x in (values, masks, ids, bases, bucket_coeffs, sign_coeffs))
     return run(_int32(counters, device), *field, _int32(weights, device))
+
+
+def sample_weights(key, batch, d, s, ratio, *, step=None, row_mask=None, impl=None):
+    """SJPC's sampling weights of one round: (batch, L, m_max) int32 over
+    the padded lattice of levels s..d, 0 in padded slots.
+
+    ``key`` is (2,) key data; with ``step`` (an int32 scalar tensor) the
+    round's key is ``fold_in(key, step)``, derived where the draws run, so
+    a key and step on the card are never read on the host.  ``row_mask``
+    ((batch,), optional) multiplies each row.  Runs on the key's device."""
+    device = _device(key, step, row_mask)
+    run = _dispatch("sample_weights", device, impl)
+    key = _field(key, device).reshape(2)
+    if step is not None:
+        step = torch.as_tensor(step).to(device=device, dtype=torch.int32).reshape(())
+    if row_mask is not None:
+        row_mask = _int32(row_mask, device).reshape(batch)
+    return run(key, step, row_mask, batch, d, s, ratio)
 
 
 def fused_query(counters_a, counters_b=None, *, impl=None):
@@ -183,7 +205,7 @@ def make_sjpc_update_fn(*, impl=None):
 
 
 # ---------------------------------------------------------------------------
-# registrations: seven ops, each a kernel and its plain version
+# registrations: eight ops, each a kernel and its plain version
 # ---------------------------------------------------------------------------
 
 def _register_all(reg=_REG) -> None:
@@ -193,6 +215,7 @@ def _register_all(reg=_REG) -> None:
             ("fused_ingest", ref.fused_ingest_ref, _fused_ingest.fused_ingest),
             ("fused_pairs", ref.fused_pairs_ref, _fused_pairs.fused_pairs),
             ("fused_query", ref.fused_query_ref, _fused_query.fused_query),
+            ("sample_weights", ref.sample_weights_ref, _sample_weights.sample_weights),
             ("sketch_moments", ref.sketch_moments_ref, _sketch_moments.sketch_moments),
             ("sketch_update", ref.sketch_update_ref, _sketch_update.sketch_update)):
         reg.register(op, kernel=kernel, oracle=oracle)

@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import torch
 
+from ..core import prng
 from ..core.fingerprint import subvalue_fingerprints
+from ..core.projections import padded_level_weights
 from ..core.sketch import SketchParams, sketch_update
 
 
@@ -43,6 +45,17 @@ def fused_ingest_ref(counters, values, masks, ids, bases,
         outs.append(sketch_update_ref(counters[lvl], fp1, fp2, bucket_coeffs[lvl],
                                       sign_coeffs[lvl], weights[:, lvl, :]))
     return torch.stack(outs)
+
+
+def sample_weights_ref(key, step, row_mask, batch, d, s, ratio):
+    """(B, L, m_max) int32 sampling weights of every level s..d: the JAX
+    package's ``sjpc._sample_level_weights`` padded as ``update_fused``
+    pads them.  ``key`` is (2,) int64 key data; with ``step`` (an int32
+    scalar tensor) the draws use ``fold_in(key, step)``; ``row_mask``
+    ((B,) int32 or None) scales each row."""
+    if step is not None:
+        key = prng.fold_in(key, step)
+    return padded_level_weights(key, batch, d, s, ratio, row_mask, key.device)
 
 
 def sketch_moments_ref(counters_a, counters_b):

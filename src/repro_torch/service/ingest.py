@@ -6,7 +6,8 @@ The JAX package consumes all R coalesced rounds of a flush for S streams in
 one jit'd dispatch: ``lax.scan`` over rounds, ``vmap`` over streams.  Here
 that is a Python loop over rounds and over streams, since the SJPC kernels
 take one stream's counters: each (round, stream) cell is one
-``sjpc.update_fused`` (the ``fused_ingest`` kernel on the card) or, with
+``sjpc.update_fused`` (the ``sample_weights`` and ``fused_ingest`` kernels
+on the card, the cell's key read there from one upload of the key grid) or, with
 ``use_fused=False``, one per-level ``sjpc.update`` whose scatter is the
 ``sketch_update`` op (the conformance path).  Both give the same counters
 for the same keys.
@@ -73,9 +74,10 @@ def multi_round_update(cfg: SJPCConfig, params: SJPCParams, counters, n, steps, 
     device = counters.device
     values = as_field_tensor(values, device)
     row_mask = torch.as_tensor(row_mask).to(device=device, dtype=torch.int32)
-    keys = torch.as_tensor(keys, dtype=torch.int64).cpu()   # read per cell on the host
+    keys = torch.as_tensor(keys, dtype=torch.int64).cpu()
     R, S, B, _ = values.shape
     if shards == 1:
+        keys = keys.to(device)   # one upload; the draws read each cell's key there
         for r in range(R):
             states = [_one_stream(cfg, params, use_fused, impl, counters[s], n[s], steps[s],
                                   values[r, s], row_mask[r, s], keys[r, s])
@@ -88,6 +90,10 @@ def multi_round_update(cfg: SJPCConfig, params: SJPCParams, counters, n, steps, 
     if B % shards:
         raise ValueError(f"batch of {B} rows does not split into {shards} shards")
     per = B // shards
+    # every shard's key fold_in(round_key, shard), for all cells at once
+    # on the host, then one upload
+    shard_keys = torch.stack([prng.fold_in(keys, torch.full(keys.shape[:-1], j))
+                              for j in range(shards)]).to(device)
     delta = [[SJPCState(torch.zeros_like(counters[s]), torch.zeros_like(n[s]),
                         torch.zeros_like(steps[s])) for s in range(S)] for _ in range(shards)]
     for r in range(R):
@@ -97,7 +103,7 @@ def multi_round_update(cfg: SJPCConfig, params: SJPCParams, counters, n, steps, 
                 st = delta[j][s]
                 delta[j][s] = _one_stream(cfg, params, use_fused, impl, st.counters, st.n,
                                           st.step, values[r, s, rows], row_mask[r, s, rows],
-                                          prng.fold_in(keys[r, s], j))
+                                          shard_keys[j, r, s])
     # the deferred merge: one reduction over the shard axis for all rounds
     dc = torch.stack([torch.stack([st.counters for st in shard]) for shard in delta])
     dn = torch.stack([torch.stack([st.n for st in shard]) for shard in delta])

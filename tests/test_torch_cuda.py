@@ -11,12 +11,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import prng
 from repro_torch.core import projections as proj
 from repro_torch.core import sjpc
 from repro_torch.kernels import fingerprint as kfp
 from repro_torch.kernels import fused_ingest as kfi
 from repro_torch.kernels import fused_query as kfq
 from repro_torch.kernels import ref
+from repro_torch.kernels import sample_weights as ksw
+from repro_torch.service.ingest import ingest_key
 
 pytestmark = pytest.mark.gpu
 
@@ -63,6 +66,99 @@ def test_fused_ingest_equals_plain(cuda, width, depth, batch):
     before = kfi.launches
     assert torch.equal(kfi.fused_ingest(*args), ref.fused_ingest_ref(*args))
     assert kfi.launches == before + 1
+
+
+@pytest.mark.parametrize("batch", [1, 17, 100, 257, 4099])
+@pytest.mark.parametrize("d,s", [(4, 2), (6, 3), (9, 4)])
+def test_fused_ingest_remainders_and_lattices_equal_plain(cuda, batch, d, s):
+    """Batch tails, the paper's lattice and one of 126-combination levels,
+    with the field data as int64 and as the kernel's int32 words."""
+    args = _ingest_args(np.random.default_rng(batch * d + s), cuda, batch, 1024, 3, d=d, s=s)
+    want = ref.fused_ingest_ref(*args)
+    words = (args[0],) + tuple(kfi.words32(a) for a in args[1:7]) + (args[7],)
+    assert torch.equal(kfi.fused_ingest(*args), want)
+    assert torch.equal(kfi.fused_ingest(*words), want)
+
+
+@pytest.mark.parametrize("width,depth", [(1 << 14, 3), (1024, 5), (256, 1)])
+def test_fused_ingest_planes_and_zero_weights(cuda, width, depth):
+    """Planes in shared memory (w <= 1024: 80 KB at t = 5) and in global
+    memory (w = 2^14: 786 KB), and all-zero weights, which leave the
+    counters as they were."""
+    args = _ingest_args(np.random.default_rng(width + depth), cuda, 65536, width, depth)
+    assert torch.equal(kfi.fused_ingest(*args), ref.fused_ingest_ref(*args))
+    zero = torch.zeros_like(args[7])
+    assert torch.equal(kfi.fused_ingest(*args[:7], zero), args[0])
+
+
+def test_fused_ingest_refuses_a_table_that_is_no_padded_lattice(cuda):
+    """A table of the padded lattice's shape holding other combinations
+    raises, before any launch."""
+    args = list(_ingest_args(np.random.default_rng(3), cuda, 100, 1024, 3))
+    masks = args[2].clone()
+    masks[0, 0] = 1 - masks[0, 0]
+    before = kfi.launches
+    with pytest.raises(ValueError):
+        kfi.fused_ingest(*args[:2], masks, *args[3:])
+    assert kfi.launches == before
+
+
+SAMPLE_CONFIGS = [(6, 3, 0.5), (4, 4, 1.0), (5, 2, 0.75), (9, 4, 0.3)]
+
+
+@pytest.mark.parametrize("batch", [1, 4095, 65536])
+@pytest.mark.parametrize("d,s,r", SAMPLE_CONFIGS)
+def test_sample_weights_equals_plain(cuda, d, s, r, batch):
+    """Bit for bit, with and without a row mask, under the default key at
+    steps 0, 1 and 2^31 - 1 derived on the card from a step tensor, a host
+    default key and an ingest key; d=9, s=4 has levels of 126
+    combinations."""
+    cfg = sjpc.SJPCConfig(d=d, s=s, ratio=r, seed=5)
+    mask = torch.from_numpy((np.random.default_rng(batch).random(batch) < 0.6)
+                            .astype(np.int32)).to(cuda)
+    base = prng.PRNGKey(cfg.seed ^ 0xC0FFEE).to(cuda)
+    keys = [(base, torch.tensor(step, dtype=torch.int32, device=cuda))
+            for step in (0, 1, 2**31 - 1)]
+    keys += [(sjpc.default_key(cfg, 7).to(cuda), None), (ingest_key(cfg, 3, 4).to(cuda), None)]
+    for key, step in keys:
+        for row_mask in (None, mask):
+            before = ksw.launches
+            got = ksw.sample_weights(key, step, row_mask, batch, d, s, r)
+            assert ksw.launches == before + 1
+            assert torch.equal(got, ref.sample_weights_ref(key, step, row_mask, batch, d, s, r))
+
+
+def test_sample_weights_at_the_widest_lattice(cuda):
+    """d=12, s=6: levels of up to 924 combinations, one CTA of 928 threads
+    per (record, level)."""
+    base = prng.PRNGKey(77).to(cuda)
+    step = torch.tensor(3, dtype=torch.int32, device=cuda)
+    mask = torch.from_numpy((np.random.default_rng(12).random(300) < 0.6)
+                            .astype(np.int32)).to(cuda)
+    got = ksw.sample_weights(base, step, mask, 300, 12, 6, 0.5)
+    assert torch.equal(got, ref.sample_weights_ref(base, step, mask, 300, 12, 6, 0.5))
+
+
+def test_update_fused_reads_nothing_back_to_the_host(cuda):
+    """With the records on the card and the default key, update_fused runs
+    under sync debug mode "error": no device-to-host read, no blocking
+    copy.  Its counters equal a CPU run's."""
+    cfg = sjpc.SJPCConfig(d=6, s=3, width=1024, depth=3, seed=9)
+    values = np.random.default_rng(9).integers(0, 2**32, size=(4096, 6), dtype=np.uint32)
+    dev_values = torch.from_numpy(values.astype(np.int64)).to(cuda)
+    params, state = sjpc.init(cfg, device=cuda)
+    state = sjpc.update_fused(cfg, params, state, dev_values)   # builds and caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = sjpc.update_fused(cfg, params, state, dev_values)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    params_c, state_c = sjpc.init(cfg, device="cpu")
+    for _ in range(2):
+        state_c = sjpc.update_fused(cfg, params_c, state_c, values)
+    assert torch.equal(state.counters.cpu(), state_c.counters)
+    assert int(state.step) == 2 and float(state.n) == 8192.0
 
 
 @pytest.mark.parametrize("N,L,t,w", [(1, 1, 1, 64), (3, 4, 2, 1024), (2, 2, 5, 65536)])

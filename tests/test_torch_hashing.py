@@ -84,6 +84,21 @@ def test_as_field_tensor_wraps_like_uint32():
                                   want)
 
 
+def test_as_field_tensor_takes_any_host_array():
+    """Host data goes up as 4-byte words: reversed and read-only views, a
+    0-d array, a list with a negative entry and uint64 data above 2^32
+    all give their uint32 values."""
+    x = np.arange(12, dtype=np.uint32).reshape(3, 4) * np.uint32(0x1555_5555)
+    frozen = x.copy()
+    frozen.flags.writeable = False
+    for arr in (x[::-1, ::2], frozen, x.T):
+        np.testing.assert_array_equal(th.as_field_tensor(arr, "cpu").numpy(),
+                                      arr.astype(np.int64))
+    assert th.as_field_tensor(np.uint32(7), "cpu").shape == ()
+    assert th.as_field_tensor([-1, 3], "cpu").tolist() == [2**32 - 1, 3]
+    assert th.as_field_tensor(np.array([2**40 + 9], np.uint64), "cpu").tolist() == [9]
+
+
 @pytest.mark.parametrize("B,d,s", [(1, 4, 2), (37, 5, 3), (64, 6, 1)])
 def test_fingerprints_match_jax_and_numpy(B, d, s):
     rng = np.random.default_rng(B * 100 + d)

@@ -18,6 +18,7 @@ from repro.core.fingerprint import np_subvalue_fingerprints
 from repro.core.hashing import P31, np_cw_hash
 from repro.core.sjpc import SJPCConfig
 from repro.kernels import ops as jops
+from repro_torch.core import projections as proj
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import fingerprint as kfp
 from repro_torch.kernels import fused_ingest as kfi
@@ -126,6 +127,125 @@ def test_fused_ingest_zero_weights_and_padded_slots(rng):
     ids[pad.valid == 0] = 0xDEAD
     got2 = ops.fused_ingest(targs[0], targs[1], _t(masks), _t(ids), *targs[4:])
     np.testing.assert_array_equal(got.numpy(), got2.numpy())
+
+
+def np_slot_walk(counters, values, masks, ids, bases, bcoef, scoef, weights):
+    """The CUDA kernel's walk (csrc/fused_ingest.cu) in numpy: a slot table
+    over each level's live combinations (the wrapper's live counts of the
+    padded lattice), each
+    slot's column bitmask and id, and only the (record, slot) items of
+    non-zero weight, fingerprinted from the bitmask and scattered."""
+    out = counters.astype(np.int64)
+    L, t, w = out.shape
+    B, d = values.shape
+    m_max = ids.shape[1]
+    _, _, live = kfi.lattice_table(_t(masks), _t(ids))
+    live = list(live)
+    p = np.uint64(int(P31))
+    slots = [(lvl, m) for lvl in range(L) for m in range(live[lvl])]
+    assert len(slots) == sum(live)
+    for lvl, m in slots:
+        cols = sum(1 << c for c in range(d) if masks[lvl, m, c] != 0)
+        rows = np.nonzero(weights[:, lvl, m])[0]
+        if not len(rows):
+            continue
+        mask = np.array([[(cols >> c) & 1 for c in range(d)]], np.uint32)
+        fp1, fp2 = np_subvalue_fingerprints(values[rows], mask, ids[lvl, m:m + 1], bases)
+        for i in range(t):
+            hb = (np_cw_hash(fp1, bcoef[lvl, i, 0]).astype(np.uint64)
+                  + np_cw_hash(fp2, bcoef[lvl, i, 1])) % p
+            hs = (np_cw_hash(fp1, scoef[lvl, i, 0]).astype(np.uint64)
+                  + np_cw_hash(fp2, scoef[lvl, i, 1])) % p
+            sign = 1 - 2 * (hs & np.uint64(1)).astype(np.int64)
+            np.add.at(out[lvl, i], (hb & np.uint64(w - 1)).astype(np.int64).ravel(),
+                      (sign[:, 0] * weights[rows, lvl, m]))
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("d,s", [(4, 2), (5, 3), (6, 3), (4, 4), (7, 2)])
+def test_fused_ingest_slot_walk_equals_jax(rng, d, s):
+    """The kernel's live-slot walk gives the JAX kernel's counters: the
+    padded slots past each level's C(d, k) combinations carry weight 0."""
+    cfg = SJPCConfig(d=d, s=s, width=128, depth=3, seed=d * 10 + s)
+    _, pad, args = ingest_inputs(rng, cfg, 40)
+    got = np_slot_walk(*(_np(a) for a in args))
+    np.testing.assert_array_equal(got, _np(jops.fused_ingest(*args, impl="jnp_ref")))
+    masks, ids, live = kfi.lattice_table(_t(pad.masks), _t(pad.ids))
+    assert list(live) == list(pad.nums)
+    assert masks.dtype == ids.dtype == torch.int32
+    assert torch.equal(masks, torch.from_numpy(pad.masks.astype(np.int32)))
+
+
+@pytest.mark.parametrize("case", ["random", "swapped", "level_of_another_lattice",
+                                  "wider", "too_many_levels"])
+def test_fused_ingest_refuses_a_table_that_is_no_padded_lattice(rng, case):
+    """The kernel walks each level's C(d, k) combinations of the padded
+    lattice of the table's shape; a table of that shape holding anything
+    else raises instead of being summed from the wrong slots."""
+    pad = proj.padded_lattice(6, 3)
+    masks, ids = pad.masks.astype(np.int64), pad.ids.astype(np.int64)
+    if case == "random":
+        masks = rng.integers(0, 2, size=masks.shape)
+    elif case == "swapped":
+        masks, ids = masks.copy(), ids.copy()
+        masks[1, [0, 1]] = masks[1, [1, 0]]
+        ids[1, [0, 1]] = ids[1, [1, 0]]
+    elif case == "level_of_another_lattice":
+        ids = ids.copy()
+        ids[0, 0] += 1
+    elif case == "wider":
+        masks = np.concatenate([masks, np.zeros_like(masks[:, :1])], axis=1)
+        ids = np.concatenate([ids, np.zeros_like(ids[:, :1])], axis=1)
+    else:
+        masks = np.concatenate([masks] * 2)[:6]
+        ids = np.concatenate([ids] * 2)[:6]
+    with pytest.raises(ValueError):
+        kfi.lattice_table(torch.from_numpy(masks), torch.from_numpy(ids))
+
+
+def test_fused_ingest_grid_numbers_items_in_32_bits():
+    """A CTA numbers its (record, slot) items in 32 bits: the grid takes
+    the largest batch whose CTAs stay below 2^32 items and refuses one
+    more record (d=12, s=1: 4,095 live slots, 132 SMs, 264 CTAs)."""
+    slots, sms = 4095, 132
+    rows = (2**32 - 1) // slots
+    assert kfi.launch_grid(264 * rows, slots, sms) == (264, rows)
+    with pytest.raises(ValueError):
+        kfi.launch_grid(264 * rows + 1, slots, sms)
+    assert kfi.launch_grid(1, 42, sms) == (1, 1)
+    assert kfi.launch_grid(65536, 42, sms) == (264, 249)
+    ctas, rows = kfi.launch_grid(777, 42, sms)
+    assert ctas * rows >= 777 > (ctas - 1) * rows and rows * 42 >= kfi.ITEMS_PER_CTA
+
+
+def test_narrowed_tables_follow_in_place_changes():
+    """The wrapper narrows a hash parameter or lattice table once per
+    tensor; an in-place change to the tensor narrows it again."""
+    coeffs = torch.tensor([[1, 2**32 - 1]], dtype=torch.int64)
+    first = kfi._once(kfi.words32, coeffs)
+    assert kfi._once(kfi.words32, coeffs) is first
+    assert first.tolist() == [[1, -1]]
+    coeffs[0, 0] = 7
+    assert kfi._once(kfi.words32, coeffs).tolist() == [[7, -1]]
+    assert kfi._once(kfi.words32, coeffs.clone()).tolist() == [[7, -1]]
+    with torch.inference_mode():
+        frozen = torch.tensor([2**32 - 2], dtype=torch.int64)
+        assert kfi._once(kfi.words32, frozen).tolist() == [-2]
+        frozen[0] = 3
+        assert kfi._once(kfi.words32, frozen).tolist() == [3]
+
+
+def test_fused_ingest_takes_int32_words(rng):
+    """Field data as uint32 words in int32 tensors (the form the CUDA
+    kernel reads) gives the int64 call's counters."""
+    cfg = SJPCConfig(d=6, s=3, width=256, depth=3, seed=12)
+    _, _, args = ingest_inputs(rng, cfg, 64)
+    targs = [_t(a) for a in args]
+    words = [targs[0]] + [kfi.words32(a) for a in targs[1:7]] + [targs[7]]
+    assert all(a.dtype == torch.int32 for a in words)
+    assert bool((words[1] < 0).any())          # records above 2^31 wrap
+    np.testing.assert_array_equal(ops.fused_ingest(*words).numpy(),
+                                  ops.fused_ingest(*targs).numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ from repro_torch.obs.metrics import default_registry
 
 REG = kernel_registry()
 OPS = ("fingerprint", "flash_attention", "fused_ingest", "fused_pairs", "fused_query",
-       "sketch_moments", "sketch_update")
+       "sample_weights", "sketch_moments", "sketch_update")
 # Every op's kernel equals its oracle bit for bit, except flash attention:
 # the kernel sums in its own tiles and order, within FLASH_F32_TOL of the
 # oracle in f32 (the JAX package's flash-kernel tolerance).  A bf16 output
@@ -86,6 +86,14 @@ def _cases(op: str, rng):
     if op == "fused_query":
         return [(_i32(rng.integers(-60, 60, size=shape)), _i32(rng.integers(-60, 60, size=shape)))
                 for shape in ((1, 1, 1, 128), (3, 2, 3, 256))]
+    if op == "sample_weights":
+        # (key, step, row_mask, batch, d, s, ratio); d=9, s=4 has levels of
+        # 126 combinations, the kernel's large-level path
+        return [(_i64([0, 77]), None, None, 37, 6, 3, 0.5),
+                (_i64([123, 4567]), _i32(3).reshape(()), _i32(rng.random(50) < 0.7), 50, 5, 2,
+                 0.75),
+                (_i64([9, 2**32 - 1]), _i32(2**31 - 1).reshape(()), None, 3, 9, 4, 0.3),
+                (_i64([1, 2]), None, _i32(rng.random(5) < 0.5), 5, 4, 4, 1.0)]
     if op == "sketch_moments":
         return [(_i32(rng.integers(-60, 60, size=(t, w))), _i32(rng.integers(-60, 60, size=(t, w))))
                 for t, w in ((1, 128), (5, 512))]
@@ -109,7 +117,7 @@ def _matrix():
 
 
 def _to(args, device):
-    return tuple(a.to(device) for a in args)
+    return tuple(a.to(device) if isinstance(a, torch.Tensor) else a for a in args)
 
 
 @pytest.mark.parametrize("op,name", _matrix())
