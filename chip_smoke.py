@@ -1314,19 +1314,25 @@ def estimator_kernel_args(device, cfg, params, est_out):
     return pairs, update, moments
 
 
-def sampling_work(cfg, batch: int) -> tuple[int, int]:
-    """(bytes, int32 operations) of one round's sampling weights: the
-    (B, L, m_max) int32 output written once (and 12 bytes of key and
-    step); THREEFRY_OPS per threefry block -- per record one per
-    combination of every level that is not all-ones, and one more per level
-    with a Bernoulli, and 1 + 3L blocks for the keys -- and two (a compare
-    and an add) per pair of a record's combinations in a level."""
+def sampling_work(cfg, weights: torch.Tensor) -> tuple[int, int]:
+    """(bytes, int32 operations) of one round's sampling weights
+    ``weights`` (B, L, m_max), drawn with no row mask: the output written
+    once (and 12 bytes of key and step); THREEFRY_OPS per threefry block
+    that any implementation of these draws must run -- per record, a
+    level's Bernoulli when frac > 0 and its M scores when the record keeps
+    neither none nor all of them (0 < l_b < M, read from ``weights``), and
+    1 + 3L blocks for the keys.  The selection's compares are not counted:
+    how many there are depends on the implementation (a sorting network
+    needs fewer than one per pair of combinations)."""
     parts = proj.level_sample_parts(cfg.d, cfg.s, cfg.ratio)
-    m_max = max(m for m, _, _ in parts)
-    drawn = [(m, frac) for m, lo, frac in parts if not (lo >= m and frac == 0.0)]
-    blocks = batch * sum(m + (frac > 0.0) for m, frac in drawn) + 1 + 3 * len(parts)
-    pairs = batch * sum(m * m for m, _ in drawn)
-    return batch * len(parts) * m_max * 4 + 12, THREEFRY_OPS * blocks + 2 * pairs
+    B, L, m_max = weights.shape
+    kept = weights.sum(dim=2)
+    blocks = 1 + 3 * L
+    for idx, (m, lo, frac) in enumerate(parts):
+        if lo >= m and frac == 0.0:
+            continue
+        blocks += B * (frac > 0.0) + m * int(((kept[:, idx] > 0) & (kept[:, idx] < m)).sum())
+    return B * L * m_max * 4 + 12, THREEFRY_OPS * blocks
 
 
 def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
@@ -1364,7 +1370,7 @@ def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
                     + B * n_live * 4 + 2 * state.counters.numel() * 4)
     sargs = (prng.PRNGKey(cfg.seed ^ 0xC0FFEE).to(device), state.step, None, B, cfg.d, cfg.s,
              cfg.ratio)
-    sample_bytes, sample_ops = sampling_work(cfg, B)
+    sample_bytes, sample_ops = sampling_work(cfg, ref.sample_weights_ref(*sargs))
 
     level0 = proj.lattice(cfg.d, cfg.s)[0]
     fmasks = torch.from_numpy(level0.masks.astype(np.int64)).to(device)

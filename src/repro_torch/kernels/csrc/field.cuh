@@ -113,24 +113,4 @@ __device__ __forceinline__ void horner_columns(const Word* values, uint32_t cols
   *fp2 = f2;
 }
 
-// Masked Horner fingerprints of one record under one combination: seed
-// (id mod p) + 1, then fp <- fp * base + (v mod p) + 1 for every column
-// whose mask entry is non-zero.  values and mask are d-long rows of uint32
-// words (int64 or int32).
-template <typename Word>
-__device__ __forceinline__ void masked_horner(const Word* values, const Word* mask, Word id,
-                                              uint32_t base1, uint32_t base2, int d,
-                                              uint32_t* fp1, uint32_t* fp2) {
-  uint32_t f1 = horner_seed(static_cast<uint32_t>(id)), f2 = f1;
-  for (int col = 0; col < d; ++col) {
-    if (mask[col] != 0) {
-      const uint32_t v = horner_term(static_cast<uint32_t>(values[col]));
-      f1 = reduce64_p31(static_cast<uint64_t>(f1) * base1 + v);
-      f2 = reduce64_p31(static_cast<uint64_t>(f2) * base2 + v);
-    }
-  }
-  *fp1 = f1;
-  *fp2 = f2;
-}
-
 }  // namespace sjpc

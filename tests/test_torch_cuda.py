@@ -59,6 +59,48 @@ def test_fingerprint_equals_plain(cuda, B):
             assert torch.equal(g, w)
 
 
+# (d, s, B): the paper lattice (65,537 records: 1,024 tiles of 64 and a
+# tail of 1 at M = 20, 512 tiles of 128 and a tail of 1 at M <= 10), the
+# request monitor's lattice (70,001: 546 tiles of 128 and a tail of 113),
+# and d = 12 with levels of up to 924 combinations, more than a CTA's 256
+# threads
+FINGERPRINT_LATTICES = [(6, 3, 1), (6, 3, 65537), (4, 4, 1), (4, 4, 4), (4, 4, 70001),
+                        (12, 6, 1), (12, 6, 1001)]
+
+
+@pytest.mark.parametrize("d,s,B", FINGERPRINT_LATTICES)
+def test_fingerprint_lattices_equal_plain(cuda, d, s, B):
+    """Every level of each lattice, bit for bit, with one launch each."""
+    rng = np.random.default_rng(B + d)
+    values = _t64(rng.integers(0, 2**32, size=(B, d), dtype=np.uint32), cuda)
+    bases = _t64(rng.integers(2, 2**31 - 1, size=2), cuda)
+    for level in proj.lattice(d, s):
+        args = (values, _t64(level.masks, cuda), _t64(level.ids, cuda), bases)
+        before = kfp.launches
+        got = kfp.fingerprint(*args)
+        assert kfp.launches == before + 1
+        for g, w in zip(got, ref.fingerprint_ref(*args)):
+            assert torch.equal(g, w), f"d={d} s={s} B={B} k={level.k}"
+
+
+def test_fingerprint_chunks_and_wide_records(cuda):
+    """More than 1,024 combinations (several CTA columns), no column, and
+    records of 64 columns and more, which go in 64-column blocks (65: two
+    blocks, the second of one column; 200: four), each with one launch."""
+    rng = np.random.default_rng(65)
+    for B, M, d in ((300, 1300, 13), (777, 40, 64), (9, 3, 0), (300, 40, 65), (130, 7, 130),
+                    (70, 1100, 200)):
+        args = (_t64(rng.integers(0, 2**32, size=(B, d), dtype=np.uint32), cuda),
+                _t64(rng.integers(0, 2, size=(M, d)), cuda),
+                _t64(rng.integers(0, 2**32, size=M, dtype=np.uint32), cuda),
+                _t64([7777, 2**31 - 2], cuda))
+        before = kfp.launches
+        got = kfp.fingerprint(*args)
+        assert kfp.launches == before + 1
+        for g, w in zip(got, ref.fingerprint_ref(*args)):
+            assert torch.equal(g, w), (B, M, d)
+
+
 @pytest.mark.parametrize("width,depth", [(64, 1), (1024, 3), (65536, 5)])
 @pytest.mark.parametrize("batch", [1, 513])
 def test_fused_ingest_equals_plain(cuda, width, depth, batch):
@@ -137,6 +179,43 @@ def test_sample_weights_at_the_widest_lattice(cuda):
                             .astype(np.int32)).to(cuda)
     got = ksw.sample_weights(base, step, mask, 300, 12, 6, 0.5)
     assert torch.equal(got, ref.sample_weights_ref(base, step, mask, 300, 12, 6, 0.5))
+
+
+@pytest.mark.parametrize("batch", [1, 31, 4097, 65537])
+@pytest.mark.parametrize("d,s,r", SAMPLE_CONFIGS)
+def test_sample_weights_batch_tails_and_zero_mask(cuda, d, s, r, batch):
+    """Batches that are no multiple of a warp's 32 records or of the
+    persistent grid's stride, under a key derived on the card from a step
+    tensor, with no mask, a random mask and an all-zero mask."""
+    base = prng.PRNGKey(d * 100 + s).to(cuda)
+    step = torch.tensor(batch % 1000, dtype=torch.int32, device=cuda)
+    masks = [None, torch.zeros(batch, dtype=torch.int32, device=cuda),
+             torch.from_numpy((np.random.default_rng(batch).random(batch) < 0.5)
+                              .astype(np.int32)).to(cuda)]
+    for row_mask in masks:
+        got = ksw.sample_weights(base, step, row_mask, batch, d, s, r)
+        assert torch.equal(got, ref.sample_weights_ref(base, step, row_mask, batch, d, s, r))
+        if row_mask is not None and not bool(row_mask.any()):
+            assert not bool(got.any())
+
+
+def _ptxas_report(name):
+    from repro_torch.kernels import _build
+    return _build.build_all()[name].with_suffix(".log").read_text()
+
+
+@pytest.mark.parametrize("name", ["sample_weights", "fingerprint"])
+def test_kernels_build_without_spills(cuda, name):
+    """ptxas (-Xptxas -v) reports no spill and no stack frame for any
+    function of the source: the composite keys and Horner state stay in
+    registers."""
+    import re
+    report = _ptxas_report(name)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
+    frames = re.findall(r"(\d+) bytes stack frame", report)
+    assert spills and frames, report
+    assert all(a == "0" and b == "0" for a, b in spills), report
+    assert set(frames) == {"0"}, report
 
 
 def test_update_fused_reads_nothing_back_to_the_host(cuda):

@@ -69,6 +69,118 @@ def test_fingerprint_accepts_numpy_uint32(rng):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
+THREADS = 256   # fingerprint.cu's CTA
+COL_BLOCK = 64  # fingerprint.cu's columns per block (a 64-bit mask)
+# (records per tile, combinations per CTA column) of the walk: the tilings
+# the kernel picks at the paper lattice's levels (64 records at M = 20, 128
+# at M <= 10), one record per tile, and chunks smaller than a level
+TILINGS = [(64, 1024), (128, 1024), (1, 1024), (3, 7)]
+
+
+def np_tiled_fingerprint(values, masks, ids, bases, tile, chunk):
+    """csrc/fingerprint.cu's walk in numpy: per chunk of combinations (a
+    CTA column), their Horner seeds; per tile of ``tile`` records and
+    block of 64 columns, each combination's columns of the block as a
+    bitmask and each of the tile's values as its Horner term, taken once;
+    each of the CTA's threads steps over the tile's (record, combination)
+    items from (tid // mc, tid % mc) by (q, rem) with one wrap, starts from
+    the seed (first block) or from what it wrote to the output (later
+    blocks), and runs the Horner steps over the block's set bits.  Every
+    output is written once per block."""
+    values, masks, ids = (np.asarray(a).astype(np.uint64) for a in (values, masks, ids))
+    B, d = values.shape
+    M = ids.shape[0]
+    p = np.uint64(int(P31))
+    base1, base2 = (np.uint64(int(x)) for x in np.asarray(bases))
+    blocks = max(1, -(-d // COL_BLOCK))
+    out = np.zeros((2, B, M), np.uint64)
+    written = np.zeros((B, M), np.int64)
+    tid = np.arange(THREADS)
+    for m0 in range(0, M, chunk):
+        mc = min(chunk, M - m0)
+        seeds = (ids[m0:m0 + mc] % p + np.uint64(1)) % p
+        q, rem = divmod(THREADS, mc)
+        for b0 in range(0, B, tile):
+            rows = min(tile, B - b0)
+            for w in range(blocks):
+                c0 = w * COL_BLOCK
+                dc = min(COL_BLOCK, d - c0)
+                bits = np.uint64(1) << np.arange(dc, dtype=np.uint64)
+                cols = (masks[m0:m0 + mc, c0:c0 + dc] != 0).astype(np.uint64) @ bits
+                terms = (values[b0:b0 + rows, c0:c0 + dc] % p + np.uint64(1)) % p
+                r, m = tid // mc, tid % mc
+                while (r < rows).any():
+                    live = r < rows
+                    ra, ma = r[live], m[live]
+                    if w == 0:
+                        f1, f2 = seeds[ma], seeds[ma]
+                    else:
+                        f1, f2 = out[0, b0 + ra, m0 + ma], out[1, b0 + ra, m0 + ma]
+                    for c in range(dc):
+                        on = ((cols[ma] >> np.uint64(c)) & np.uint64(1)).astype(bool)
+                        x = terms[ra, c]
+                        f1 = np.where(on, (f1 * base1 + x) % p, f1)
+                        f2 = np.where(on, (f2 * base2 + x) % p, f2)
+                    out[0, b0 + ra, m0 + ma] = f1
+                    out[1, b0 + ra, m0 + ma] = f2
+                    np.add.at(written, (b0 + ra, m0 + ma), 1)
+                    r, m = r + q, m + rem
+                    wrap = m >= mc
+                    m[wrap] -= mc
+                    r[wrap] += 1
+    assert (written == blocks).all()
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("tile,chunk", TILINGS)
+@pytest.mark.parametrize("d,s,levels,B", [
+    (6, 3, (0, 1, 2, 3), 130),   # the paper lattice: 64-record tiles and a tail
+    (4, 4, (0,), 5),             # the request monitor's one combination
+    (4, 2, (0, 1, 2), 1),
+    (12, 6, (0, 5, 6), 37),      # 924 combinations: more than a CTA's 256 threads
+])
+def test_fingerprint_tiled_walk_equals_jax(rng, d, s, levels, B, tile, chunk):
+    """The kernel's tiled walk gives the JAX kernel's fingerprints, run in
+    interpret mode, level by level."""
+    for level in levels:
+        args = fingerprint_case(rng, B, d, s, level=level)
+        got = np_tiled_fingerprint(*args, tile, chunk)
+        want = jops.fingerprint(*args, impl="pallas_interpret")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, _np(w).astype(np.uint64))
+
+
+@pytest.mark.parametrize("tile,chunk", TILINGS)
+def test_fingerprint_tiled_walk_over_wide_records_equals_jax(rng, tile, chunk):
+    """Records of 65 and 130 columns go in 64-column blocks, each
+    carrying the fingerprints on from the last: the walk equals the JAX
+    kernel in interpret mode."""
+    for B, M, d in ((9, 5, 65), (4, 3, 130)):
+        values = rng.integers(0, 2**32, size=(B, d), dtype=np.uint32)
+        masks = rng.integers(0, 2, size=(M, d)).astype(np.uint32)
+        ids = rng.integers(0, 2**32, size=M, dtype=np.uint32)
+        bases = np.array([98765, 2**31 - 9], np.uint32)
+        got = np_tiled_fingerprint(values, masks, ids, bases, tile, chunk)
+        want = jops.fingerprint(values, masks, ids, bases, impl="pallas_interpret")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, _np(w).astype(np.uint64))
+
+
+def test_fingerprint_tiled_walk_over_chunks_and_wide_records(rng):
+    """Above 1,024 combinations a launch takes several CTA columns, and
+    records of any width go in 64-column blocks: the walk equals the numpy
+    oracle."""
+    for B, M, d in ((3, 1300, 13), (70, 40, 64), (9, 3, 0), (5, 1100, 200)):
+        values = rng.integers(0, 2**32, size=(B, d), dtype=np.uint32)
+        masks = rng.integers(0, 2, size=(M, d)).astype(np.uint32)
+        ids = rng.integers(0, 2**32, size=M, dtype=np.uint32)
+        bases = np.array([123457, 2**31 - 5], np.uint32)
+        got = np_tiled_fingerprint(values, masks, ids, bases, 64, 1024)
+        want = np_subvalue_fingerprints(values, masks, ids, bases)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, np.asarray(w).astype(np.uint64))
+
+
 # ---------------------------------------------------------------------------
 # fused_ingest
 # ---------------------------------------------------------------------------

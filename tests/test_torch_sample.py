@@ -127,19 +127,135 @@ def uniform_of(bits):
     return ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
 
 
-def kernel_scheme(key, step, row_mask, batch, d, s, ratio):
-    """(B, L, m_max) weights as sample_weights.cu computes them: a segment
-    of W lanes per (record, level) for M < 32 (lane M draws the Bernoulli
-    uniform, ranks over 32-bit composite keys (score << 5 | 31 - m)); one
-    CTA per (record, level) above (64-bit composite keys (score << 32 |
-    ~m)); lo + [u < frac rounded to float32]."""
+def sort_descending(c):
+    """sample_weights.cu's bitonic network on the last axis (a power of
+    two) of a uint32 array: descending."""
+    c = c.copy()
+    n = c.shape[-1]
+    k = 2
+    while k <= n:
+        j = k >> 1
+        while j > 0:
+            for i in range(n):
+                p = i ^ j
+                if p > i:
+                    hi = np.maximum(c[..., i], c[..., p])
+                    lo = np.minimum(c[..., i], c[..., p])
+                    c[..., i], c[..., p] = (hi, lo) if i & k == 0 else (lo, hi)
+            j >>= 1
+        k <<= 1
+    return c
+
+
+def sort_width(M):
+    """N of keep_mask_of_width: the power of two at or above M, at least 2."""
+    return max(2, 1 << (M - 1).bit_length())
+
+
+THREADS = 256   # sample_weights.cu's CTA
+
+
+def row_walk(nl, units, rows):
+    """RowWalk: each thread's (record, level, unit) over a tile's rows,
+    from unit tid in steps of 256 units carried with no division."""
+    tid = np.arange(THREADS)
+    row, rows_per_step = tid // units, THREADS // units
+    j, r = tid - row * units, row // nl
+    li = row - r * nl
+    dj, dr = THREADS - rows_per_step * units, rows_per_step // nl
+    dli = rows_per_step - dr * nl
+    while (r < rows).any():
+        live = r < rows
+        yield r[live], li[live], j[live]
+        j, li, r = j + dj, li + dli, r + dr
+        wrap = j >= units
+        j[wrap] -= units
+        li[wrap] += 1
+        wrap = li >= nl
+        li[wrap] -= nl
+        r[wrap] += 1
+
+
+def keep_masks(k_sel, k_round, b, M, lo, frac32, index_dtype):
+    """keep_mask<N> of records ``b`` at one level of M < 32 combinations:
+    the uint32 keep masks and the threefry blocks drawn, (Bernoulli,
+    scores).  The Bernoulli is drawn only when frac > 0, the scores only
+    for records whose l_b lies strictly between 0 and M; the composite keys
+    (score << 5 | 31 - m), padded with 0 to N, are sorted by the bitonic
+    network and the top l_b keys' low bits are the kept combinations."""
+    l = np.full(len(b), lo, np.int64)
+    bernoulli = 0
+    if frac32 > 0:
+        l += uniform_of(bits_of(k_round, b)) < frac32
+        bernoulli = len(b)
+    masks = np.where(l >= M, np.uint32((1 << M) - 1), np.uint32(0))
+    need = (l > 0) & (l < M)
+    if not need.any():
+        return masks, bernoulli, 0
+    n = sort_width(M)
+    m = np.arange(M)
+    first = b[need].astype(index_dtype) * index_dtype(M)
+    score = bits_of(k_sel, first[:, None] + m.astype(index_dtype)[None, :]) >> np.uint32(9)
+    comp = np.zeros((len(first), n), np.uint32)
+    comp[:, :M] = (score << np.uint32(5)) | (np.uint32(31) - m.astype(np.uint32))
+    comp = sort_descending(comp)
+    top = np.arange(n)[None, :] < l[need][:, None]
+    bits = np.where(top, np.uint32(1) << (np.uint32(31) - (comp & np.uint32(31))), np.uint32(0))
+    masks[need] = np.bitwise_or.reduce(bits, axis=1)
+    return masks, bernoulli, score.size
+
+
+def kernel_scheme(key, step, row_mask, batch, d, s, ratio, blocks=None):
+    """(B, L, m_max) weights as sample_weights.cu computes them.  Levels of
+    M < 32: tiles of 256 records, one thread per record computing its keep
+    mask at every small level in turn into the tile's table (element
+    indices in uint32 when B * L * m_max < 2^31), then the CTA's row walk
+    writes every unit (4 ints, or 1 when m_max is no multiple of 4) of the
+    tile's rows exactly once.  Larger levels: one CTA per
+    (record, level), ranks over 64-bit composite keys (score << 32 | ~m).
+    ``blocks``, a dict, gets each small level's threefry blocks drawn,
+    (Bernoulli, scores)."""
     parts = tproj.level_sample_parts(d, s, ratio)
     L, m_max = len(parts), max(m for m, _, _ in parts)
-    out = np.zeros((batch, L, m_max), np.int32)
+    out = np.full((batch, L, m_max), -1, np.int32)
     mul = np.ones(batch, np.int32) if row_mask is None else np.asarray(row_mask, np.int32)
+    index_dtype = np.uint32 if batch * L * m_max < 2**31 else np.uint64
+    small = [idx for idx, (M, _, _) in enumerate(parts) if M < 32]
+    if small:
+        nl = len(small)
+        masks = np.zeros((batch, nl), np.uint32)
+        drawn = {li: np.zeros(2, np.int64) for li in range(nl)}
+        for b0 in range(0, batch, THREADS):
+            rows = min(THREADS, batch - b0)
+            for li, idx in enumerate(small):
+                M, lo, frac = parts[idx]
+                frac32 = np.float32(frac)
+                b = np.arange(b0, b0 + rows, dtype=np.uint64)
+                if lo >= M and frac32 == 0:
+                    masks[b0:b0 + rows, li] = (1 << M) - 1
+                    continue
+                k_sel, k_round = level_keys(key, step, idx)
+                masks[b0:b0 + rows, li], *n = keep_masks(k_sel, k_round, b, M, lo, frac32,
+                                                         index_dtype)
+                drawn[li] += n
+            width = 4 if m_max % 4 == 0 else 1
+            written = np.zeros((rows, nl, m_max // width), np.int64)
+            for r, li, j in row_walk(nl, m_max // width, rows):
+                np.add.at(written, (r, li, j), 1)
+                for e in range(width):
+                    col = j * width + e
+                    bit = np.where(col < 32, (masks[b0 + r, li] >> np.minimum(col, 31).astype(
+                        np.uint32)) & np.uint32(1), 0)
+                    out[b0 + r, np.asarray(small)[li], col] = bit.astype(np.int32) * mul[b0 + r]
+            assert (written == 1).all(), "each unit of the tile's rows written once"
+        if blocks is not None:
+            blocks.update({small[li]: tuple(int(x) for x in n) for li, n in drawn.items()})
     b = np.arange(batch, dtype=np.uint64)
     for idx, (M, lo, frac) in enumerate(parts):
+        if M < 32:
+            continue
         frac32 = np.float32(frac)
+        out[:, idx, :] = 0
         if lo >= M and frac32 == 0:
             out[:, idx, :M] = mul[:, None]
             continue
@@ -147,11 +263,7 @@ def kernel_scheme(key, step, row_mask, batch, d, s, ratio):
         m = np.arange(M, dtype=np.uint64)
         score = bits_of(k_sel, b[:, None] * np.uint64(M) + m[None, :]) >> np.uint32(9)
         u = uniform_of(bits_of(k_round, b))
-        if M < 32:
-            comp = (score << np.uint32(5)) | (np.uint32(31) - m.astype(np.uint32))
-        else:
-            comp = ((score.astype(np.uint64) << np.uint64(32))
-                    | (np.uint64(0xFFFFFFFF) - m))
+        comp = ((score.astype(np.uint64) << np.uint64(32)) | (np.uint64(0xFFFFFFFF) - m))
         rank = (comp[:, None, :] > comp[:, :, None]).sum(axis=2)
         keep_n = lo + ((frac32 > 0) & (u < frac32)).astype(np.int64)
         out[:, idx, :M] = (rank < keep_n[:, None]).astype(np.int32) * mul[:, None]
@@ -183,15 +295,61 @@ def test_kernel_scheme_at_the_widest_lattice():
 
 def test_kernel_scheme_breaks_ties_by_index():
     """Equal 23-bit scores rank by index in the composite keys, as a
-    stable argsort ranks equal floats."""
+    stable argsort ranks equal floats; and the top l keys of the sorting
+    network are the combinations of rank < l, for every l."""
     score = np.array([5, 9, 5, 5, 9, 0], np.uint32)
     m = np.arange(6, dtype=np.uint32)
+    want = tproj.descending_ranks(torch.from_numpy(score.astype(np.float32))).numpy()
     for comp in ((score << np.uint32(5)) | (np.uint32(31) - m),
                  (score.astype(np.uint64) << np.uint64(32))
                  | (np.uint64(0xFFFFFFFF) - m.astype(np.uint64))):
         rank = (comp[None, :] > comp[:, None]).sum(axis=1)
-        want = tproj.descending_ranks(torch.from_numpy(score.astype(np.float32)))
-        np.testing.assert_array_equal(rank, want.numpy())
+        np.testing.assert_array_equal(rank, want)
+    comp = np.zeros(sort_width(6), np.uint32)
+    comp[:6] = (score << np.uint32(5)) | (np.uint32(31) - m)
+    top = sort_descending(comp)
+    for l in range(7):
+        kept = {31 - int(c & 31) for c in top[:l]}
+        assert kept == set(np.nonzero(want < l)[0].tolist()), l
+
+
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32])
+def test_sorting_network_sorts_descending(n):
+    """The bitonic network of every width the kernel instantiates sorts
+    random keys, ties and the zero padding in descending order."""
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, 2**32, size=(200, n), dtype=np.uint32)
+    keys[:50] = rng.integers(0, 3, size=(50, n), dtype=np.uint32)
+    np.testing.assert_array_equal(sort_descending(keys), -np.sort(-keys.astype(np.int64), axis=1))
+
+
+@pytest.mark.parametrize("nl", [1, 2, 3, 4, 5, 6, 7, 12, 16])
+def test_small_kernel_row_walk_writes_every_unit_once(nl):
+    """The CTA's row walk writes every unit of a tile's rows once: rows of
+    fewer and more units than the CTA's threads, full tiles and tails."""
+    for rows in (1, 31, 33, THREADS):
+        for units in (1, 5, 6, 64, 256, 257, 1023):
+            seen = np.zeros((rows, nl, units), np.int64)
+            for r, li, j in row_walk(nl, units, rows):
+                np.add.at(seen, (r, li, j), 1)
+            assert (seen == 1).all(), (rows, units)
+
+
+def test_kernel_scheme_draws_only_what_the_rows_read():
+    """At the paper's widths (M = 20, 15, 6, 1): the level with frac == 0
+    (k = 3, 10 of 20 kept) draws no Bernoulli and keeps the same top 10 as
+    JAX; the one-combination level draws its Bernoulli and no score; 43
+    threefry blocks per record in all."""
+    batch = 300
+    _, jkey, tkey, step = _keys()[1]
+    want = _jax_weights(6, 3, 0.5, jkey, batch, None)
+    blocks = {}
+    got = kernel_scheme(tkey.tolist(), int(step), None, batch, 6, 3, 0.5, blocks=blocks)
+    np.testing.assert_array_equal(got, want)
+    assert blocks == {0: (0, 20 * batch), 1: (batch, 15 * batch), 2: (0, 6 * batch),
+                      3: (batch, 0)}
+    assert sum(a + b for a, b in blocks.values()) == 43 * batch
+    assert (got[:, 0, :20].sum(axis=1) == 10).all()
 
 
 @pytest.mark.parametrize("d,s,r", CONFIGS)
