@@ -44,9 +44,11 @@ fingerprints and counters against the plain versions; the bf16 prefill's
 last-token logits are no further from the f32 prefill's than the plain
 bf16 path's (within 1.25 times).  The launch counts and
 ``kernel_dispatch_total`` show that every kernel call of those paths ran
-the hand-written kernel.  Prints a ``{"kernels": [...]}`` line
-with each kernel's launches, times and bound, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
+the hand-written kernel.  Prints a ``{"kernels": [...]}`` line with each
+kernel's launches, times and bound (``fused_pairs`` also at the 64-stream
+query and at the 1,024-tenant query's bootstrap replicates; beside the
+three shortest kernels the per-launch floor, an empty kernel between the
+same events), the card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero; it exits 2 and prints no result without a CUDA device.
 """
 from __future__ import annotations
@@ -76,6 +78,7 @@ from repro_torch.core import sketch as sk  # noqa: E402
 from repro_torch.core.hashing import P31, as_field_tensor  # noqa: E402
 from repro_torch.data.recordize import np_records_from_tokens, records_from_tokens  # noqa: E402
 from repro_torch.data.synthetic import shingle_records  # noqa: E402
+from repro_torch.estimators import uncertainty  # noqa: E402
 from repro_torch.kernels import _build, ops, ref, registry  # noqa: E402
 from repro_torch.kernels import fingerprint as kfp  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
@@ -1281,18 +1284,22 @@ def flash_rows(device, by_path, flush) -> list[dict]:
     return [row, tc]
 
 
+def pairs_work(items, valid):
+    """(args, bytes, int32 operations) of one fused_pairs call: the
+    histogram is symmetric, so d compares per unordered valid pair."""
+    N, R, d = items.shape
+    m = (valid != 0).sum(dim=1).to(torch.int64)
+    return ((items, valid), N * R * d * FIELD_BYTES + N * R * 4 + N * (d + 1) * 4,
+            d * int((m * (m - 1) // 2).sum()))
+
+
 def estimator_kernel_args(device, cfg, params, est_out):
     """The estimator path's shapes for the three kernels it adds:
     fused_pairs over the 1,024-tenant reservoir query, sketch_update of one
     level of one unfused round (stream 0, round 0, level k = s), and
     sketch_moments of one stream's level."""
     tenants = tile_states(est_out["reservoir"], TENANTS // EST_STREAMS)
-    valid = (tenants.tags >= 0).to(torch.int32)
-    m = valid.sum(dim=1).to(torch.int64)
-    N, R, d = tenants.items.shape
-    # the histogram is symmetric: d compares per unordered valid pair
-    pairs = ((tenants.items, valid), N * R * d * FIELD_BYTES + N * R * 4 + N * (d + 1) * 4,
-             d * int((m * (m - 1) // 2).sum()))
+    pairs = pairs_work(tenants.items, (tenants.tags >= 0).to(torch.int32))
 
     level = proj.lattice(cfg.d, cfg.s)[0]
     values = as_field_tensor(est_out["records"][0][:EST_ROWS], device)
@@ -1312,6 +1319,42 @@ def estimator_kernel_args(device, cfg, params, est_out):
               + 2 * counters.numel() * 4, 12 * t * int((weights != 0).sum()))
     moments = ((counters, counters), counters.numel() * 4 + t * 4, counters.numel())
     return pairs, update, moments
+
+
+def bootstrap_pairs_args(device, cfg, est_out):
+    """fused_pairs' arguments at the bootstrap of the 1,024-tenant
+    reservoir query (estimators/uncertainty.py): B replicates of each
+    tenant's sample, stacked on N."""
+    tenants = tile_states(est_out["reservoir"], TENANTS // EST_STREAMS)
+    valid = (tenants.tags >= 0).to(torch.int32)
+    est = E.make("reservoir", cfg, device=device)
+    keys = uncertainty.bootstrap_key(est.cfg.seed, tenants.n, tenants.step)
+    idx, rep_valid, _ = uncertainty.resample_valid_slots(keys, valid, est.bootstrap,
+                                                         est.bootstrap_cap)
+    N = valid.shape[0]
+    rep_items = tenants.items[torch.arange(N, device=device)[:, None, None], idx]
+    return (rep_items.reshape((-1,) + rep_items.shape[2:]).contiguous(),
+            rep_valid.reshape(-1, rep_valid.shape[-1]).contiguous())
+
+
+def time_pairs_shape(row, key, items, valid, flush) -> None:
+    """fused_pairs at another of the main path's shapes: held bit for bit
+    against the plain version, and ``key``_shape, _ms, _plain_ms,
+    _bound_ms and _bound_by added to its row."""
+    (args, nbytes, ops) = pairs_work(items, valid)
+    k1, _ = device_ms(lambda: kpairs.fused_pairs(*args), 20, flush)
+    k2, _ = device_ms(lambda: kpairs.fused_pairs(*args), 20, flush)
+    p1, _ = device_ms(lambda: ref.fused_pairs_ref(*args), 3, flush)
+    p2, _ = device_ms(lambda: ref.fused_pairs_ref(*args), 3, flush)
+    require(equal(kpairs.fused_pairs(*args), ref.fused_pairs_ref(*args)),
+            f"fused_pairs at the {key} shape: timed output differs from the plain version")
+    b_ms, b_by = bound_ms(nbytes, ops)
+    row.update({f"{key}_shape": list(items.shape), f"{key}_ms": min(k1, k2),
+                f"{key}_plain_ms": min(p1, p2), f"{key}_bound_ms": b_ms,
+                f"{key}_bound_by": b_by})
+    log(f"time fused_pairs at the {key} shape {tuple(items.shape)}: kernel "
+        f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes} B, {ops} int ops)")
 
 
 def sampling_work(cfg, weights: torch.Tensor) -> tuple[int, int]:
@@ -1428,6 +1471,23 @@ def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
             f"per call), plain {p1:.4f}/{p2:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}: {nbytes} B, {ops} int ops)"
             + (f", library {lib:.4f} ms" if lib is not None else ""))
+    # fused_pairs at the path's other shapes: the 64-stream query, and the
+    # 1,024-tenant query's bootstrap, whose 400 MB of stacked replicates
+    # are made only now (after the other rows' timings) and freed at once
+    pairs_row = next(row for row in rows if row["name"] == "fused_pairs")
+    streams = est_out["reservoir"]
+    time_pairs_shape(pairs_row, "streams", streams.items, (streams.tags >= 0).to(torch.int32),
+                     flush)
+    time_pairs_shape(pairs_row, "bootstrap", *bootstrap_pairs_args(device, cfg, est_out), flush)
+    torch.cuda.empty_cache()
+    # the per-launch floor: an empty kernel between the same CUDA events
+    f1, _ = device_ms(lambda: torch.cuda._sleep(0), 100, flush)
+    f2, _ = device_ms(lambda: torch.cuda._sleep(0), 100, flush)
+    for row in rows:
+        if row["name"] in ("fused_query", "sketch_update", "sketch_moments"):
+            row["launch_floor_ms"] = min(f1, f2)
+    log(f"per-launch floor (torch.cuda._sleep(0) between the events): {f1:.4f}/{f2:.4f} ms, "
+        f"beside fused_query, sketch_update and sketch_moments")
     # fused_ingest on the field data it reads, int32 words, without the
     # wrapper's narrowing of the records, which the row's ms includes
     words = iargs[:1] + tuple(kfi.words32(a) for a in iargs[1:7]) + iargs[7:]

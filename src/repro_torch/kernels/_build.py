@@ -42,7 +42,7 @@ SIGNATURES = {
     "fused_query": ("sjpc_fused_query", [P, P, P, I64, I32, I32, P]),
     "sample_weights": ("sjpc_sample_weights", [P, P, P, P, P, P, P, I64, I32, I32, I32, P]),
     "sketch_moments": ("sjpc_sketch_moments", [P, P, P, I32, I32, I32, P]),
-    "sketch_update": ("sjpc_sketch_update", [P, P, P, P, P, P, I64, I32, I32, I32, P]),
+    "sketch_update": ("sjpc_sketch_update", [P, P, P, P, P, P, P, I64, I32, I32, I32, P]),
     "flash_attention_f32": ("flash_attention_f32_fwd",
                             [P, P, P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, P]),
     "flash_attention_tc": ("flash_attention_tc_fwd",

@@ -71,15 +71,4 @@ __device__ __forceinline__ void flush_tile(uint32_t* plane, const uint32_t* tile
   }
 }
 
-// Grid size for a grid-stride loop over `total` items: one item per
-// thread, but a tile CTA flushes its whole tile once, so it should see
-// many items -- about two tile CTAs per SM over `planes` planes.
-inline int atomic_grid(int64_t total, int threads, bool use_tile, int planes, int device) {
-  const int64_t want = (total + threads - 1) / threads;
-  int sms = 132;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int64_t cap = use_tile ? (2 * sms + planes - 1) / planes : 65535;
-  return static_cast<int>(want < cap ? want : cap);
-}
-
 }  // namespace sjpc

@@ -34,6 +34,8 @@ def fused_pairs(items: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     if items.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"items: expected int32 or int64, got {items.dtype}")
     words = items.to(torch.int32).contiguous()
+    if words.data_ptr() % 16:   # the kernel copies rows in 16-byte words
+        words = words.clone()
     flags = (valid != 0).to(torch.int32).contiguous()
     _build.require("valid", flags, torch.int32, (N, R), device)
     out = torch.zeros((N, d + 1), dtype=torch.int32, device=device)

@@ -204,11 +204,12 @@ def _ptxas_report(name):
     return _build.build_all()[name].with_suffix(".log").read_text()
 
 
-@pytest.mark.parametrize("name", ["sample_weights", "fingerprint"])
+@pytest.mark.parametrize("name", ["sample_weights", "fingerprint", "fused_pairs",
+                                  "sketch_update"])
 def test_kernels_build_without_spills(cuda, name):
     """ptxas (-Xptxas -v) reports no spill and no stack frame for any
-    function of the source: the composite keys and Horner state stay in
-    registers."""
+    function of the source: the composite keys, Horner state, i-rows,
+    packed bins and key hashes stay in registers."""
     import re
     report = _ptxas_report(name)
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
@@ -290,26 +291,50 @@ from repro_torch.kernels import sketch_update as ksu  # noqa: E402
 from repro_torch.service.ingest import ingest_key_grid  # noqa: E402
 
 
-@pytest.mark.parametrize("N,R,d", [(1, 1, 3), (3, 129, 6), (2, 1755, 6), (1, 300, 16),
-                                   (64, 256, 1)])
-def test_fused_pairs_equals_plain(cuda, N, R, d):
+@pytest.mark.parametrize("N,R,d,p_valid", [
+    (1, 1, 3, 0.8), (3, 129, 6, 0.8), (2, 1755, 6, 0.8), (1, 300, 16, 0.8), (64, 256, 1, 0.8),
+    (1024, 256, 6, 1.0),                      # the bootstrap's stacked replicates, scaled down
+    (4, 127, 6, 0.8), (4, 128, 6, 0.8), (4, 257, 6, 0.8), (4, 513, 6, 0.8),   # around the tile
+    (3, 300, 6, 0.0),                         # no valid slot
+    (2, 700, 12, 1.0), (2, 700, 14, 1.0),     # d = 12 two i-rows a thread, d = 14 one
+    (2, 700, 16, 1.0), (3, 1030, 16, 0.9)])   # d = 16: bins 8-16
+def test_fused_pairs_equals_plain(cuda, N, R, d, p_valid):
     rng = np.random.default_rng(N * R + d)
     items = _t64(rng.integers(0, 3, size=(N, R, d), dtype=np.uint32), cuda)
-    valid = torch.from_numpy((rng.random((N, R)) < 0.8).astype(np.int32)).to(cuda)
+    valid = torch.from_numpy((rng.random((N, R)) < p_valid).astype(np.int32)).to(cuda)
     before = kfp2.launches
     assert torch.equal(kfp2.fused_pairs(items, valid), ref.fused_pairs_ref(items, valid))
     assert kfp2.launches == before + 1
 
 
-@pytest.mark.parametrize("n,t,w", [(1, 1, 64), (777, 3, 1024), (4096 * 42, 5, 65536)])
-def test_sketch_update_equals_plain(cuda, n, t, w):
+@pytest.mark.parametrize("n,t,w,near_2_31", [
+    (1, 1, 64, False), (777, 3, 1024, False), (4096 * 42, 5, 65536, False),
+    (0, 3, 1024, False), (100, 3, 1024, False),     # no key; fewer keys than one CTA's threads
+    (81920, 3, 1024, False),                        # one level of an unfused round
+    (4096, 3, 1024, False), (200000, 2, 64, False),
+    (81920, 3, 1024, True), (4096 * 42, 5, 65536, True)])  # counters within 3 of +-2^31
+def test_sketch_update_equals_plain(cuda, n, t, w, near_2_31):
+    """The shared-tile path (planes up to 48 KB) and the global-atomic
+    path (t=5, w=65536): equal to the plain version, one launch per call,
+    the input counters unchanged, and a second call right after the first
+    equal too."""
     rng = np.random.default_rng(n + t)
     params = sjpc.sk.make_sketch_params(rng, t, device=cuda)
     fp1, fp2 = (_t64(rng.integers(0, 2**31 - 1, size=n), cuda) for _ in range(2))
     weights = torch.from_numpy(rng.integers(-2, 3, size=n).astype(np.int32)).to(cuda)
-    counters = torch.from_numpy(rng.integers(-9, 9, size=(t, w)).astype(np.int32)).to(cuda)
+    counters = rng.integers(-9, 9, size=(t, w)).astype(np.int32)
+    if near_2_31:
+        counters[0] = rng.integers(2**31 - 4, 2**31, size=w)
+        counters[-1] = -(2**31) + rng.integers(0, 4, size=w)
+    counters = torch.from_numpy(counters).to(cuda)
+    before = counters.clone()
     args = (counters, fp1, fp2, params.bucket_coeffs, params.sign_coeffs, weights)
-    assert torch.equal(ksu.sketch_update(*args), ref.sketch_update_ref(*args))
+    want = ref.sketch_update_ref(*args)
+    launches = ksu.launches
+    for _ in range(2):
+        assert torch.equal(ksu.sketch_update(*args), want)
+    assert ksu.launches == launches + 2
+    assert torch.equal(counters, before)
     zero = torch.zeros_like(weights)
     assert torch.equal(ksu.sketch_update(*args[:5], zero), counters)
 
