@@ -46,7 +46,9 @@ bf16 path's (within 1.25 times).  The launch counts and
 ``kernel_dispatch_total`` show that every kernel call of those paths ran
 the hand-written kernel.  Prints a ``{"kernels": [...]}`` line with each
 kernel's launches, times and bound (``fused_pairs`` also at the 64-stream
-query and at the 1,024-tenant query's bootstrap replicates; beside the
+query and at the 1,024-tenant query's bootstrap replicates;
+``sketch_moments`` also on a join's two sketches and, at (3, 65536), its
+kept design beside the one not kept; beside the
 three shortest kernels the per-launch floor, an empty kernel between the
 same events), the card's name and power limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero; it exits 2 and prints no result without a CUDA device.
@@ -54,6 +56,7 @@ non-zero; it exits 2 and prints no result without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import itertools
 import json
 import math
@@ -192,6 +195,11 @@ REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:87",
             "fused_pairs": "src/repro/kernels/fused_pairs.py:85",
             "sketch_update": "src/repro/kernels/sketch_update.py:60",
             "sketch_moments": "src/repro/kernels/sketch_moments.py:34"}
+# Kernels that no path of either package calls: their launches are this
+# script's own cross-check, which the row's launches_by_path says.
+CROSS_CHECK_ONLY = {"sketch_moments": "all this script's F2 cross-check against "
+                                      "fused_query's rows; no path of either package calls "
+                                      "sketch_moments"}
 # The (N, R, d) fused_pairs shapes of the JAX package's kernel tests
 # (tests/kernel_cases.py PAIRS_SHAPES).
 PAIRS_SHAPES = [(1, 1, 3), (1, 7, 3), (2, 64, 5), (1, 130, 6), (3, 33, 4), (1, 256, 2)]
@@ -644,24 +652,33 @@ def check_sketch_update_grid(rng, device) -> int:
 
 
 def check_sketch_moments_grid(rng, device) -> int:
-    """Bit-exact against the plain version; against the int64 oracle exact
+    """Bit-exact against the plain version, at the paper's width before
+    and after padding (1000, 1024), narrow and wide rows, counters up to
+    the whole int32 range, and rows that are views at element offset 0
+    and 1 of a larger buffer (the latter takes the kernel's 4-byte loads);
+    F2 also against fused_query's rows; against the int64 oracle exact
     below 2^24 and within 1e-6 (relative) above it."""
     n_checks = 0
     for t in (1, 3, 5):
-        for w in (64, 1024, 65536):
-            for magnitude in (60, 1 << 20):
-                a = counter_stack(rng, device, (t, w), magnitude)
-                b = counter_stack(rng, device, (t, w), magnitude)
-                for x, y in ((a, b), (a, a)):
-                    got = ksm.sketch_moments(x, y)
-                    require(equal(got, ref.sketch_moments_ref(x, y)),
-                            f"sketch_moments t={t} w={w} |c|<{magnitude}")
-                    oracle = (x.to(torch.int64) * y.to(torch.int64)).sum(dim=-1).double()
-                    err = ((got.double() - oracle).abs() / oracle.abs().clamp_min(1.0)).max()
-                    require(float(err) <= 1e-6, f"sketch_moments vs int64 oracle: {err}")
-                    small = oracle.abs() < 2**24
-                    require(bool((got.double() == oracle)[small].all()),
-                            "sketch_moments below 2^24 is exact")
+        for w in (1, 3, 64, 1000, 1024, 65536):
+            for magnitude in (60, 1 << 20, 1 << 31):
+                for offset in (0, 1):
+                    a, b = (counter_stack(rng, device, (t * w + offset,), magnitude)[offset:]
+                            .view(t, w) for _ in range(2))
+                    what = f"sketch_moments t={t} w={w} |c|<={magnitude} offset={offset}"
+                    for x, y in ((a, b), (a, a)):
+                        got = ksm.sketch_moments(x, y)
+                        require(equal(got, ref.sketch_moments_ref(x, y)), what)
+                        oracle = (x.to(torch.int64) * y.to(torch.int64)).sum(dim=-1).double()
+                        err = ((got.double() - oracle).abs() / oracle.abs().clamp_min(1.0)).max()
+                        require(float(err) <= 1e-6, f"{what} vs int64 oracle: {err}")
+                        small = oracle.abs() < 2**24
+                        require(bool((got.double() == oracle)[small].all()),
+                                f"{what}: below 2^24 is exact")
+                        n_checks += 1
+                    require(equal(ksm.sketch_moments(a, a),
+                                  kfq.fused_query(a[None, None], a[None, None])[0, 0]),
+                            f"{what}: F2 != fused_query's rows")
                     n_checks += 1
     return n_checks
 
@@ -1357,6 +1374,64 @@ def time_pairs_shape(row, key, items, valid, flush) -> None:
         f"{nbytes} B, {ops} int ops)")
 
 
+def moments_capped(max_cluster: int):
+    """``sjpc_sketch_moments_capped`` of the built kernel: the same launch
+    with at most ``max_cluster`` CTAs per row, a function of (a, b) for
+    the A/B of the wide-row design not kept.  Its launches are not the
+    path's and are not counted."""
+    fn = ctypes.CDLL(str(_build.build_all()["sketch_moments"])).sjpc_sketch_moments_capped
+    fn.argtypes = [_build.P, _build.P, _build.P, _build.I32, _build.I32, _build.I32,
+                   _build.I32, _build.P]
+    fn.restype = ctypes.c_int
+
+    def call(a, b):
+        t, w = a.shape
+        out = torch.empty((t,), dtype=torch.float32, device=a.device)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        _build.check("sketch_moments_capped", fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                                 t, w, max_cluster, a.device.index, stream))
+        return out
+    return call
+
+
+def time_moments_shapes(row, est_out, flush, device) -> None:
+    """sketch_moments beyond the row's F2 at (3, 1024): the join
+    estimator's case (two distinct sketches, streams 0 and 1 at level 0),
+    ``join_*``; and F2 at (3, 65536), ``wide_*``, the kept design (a
+    cluster of CTAs per row) beside the one not kept (one CTA per row).
+    Each held bit for bit against the plain version."""
+    counters = est_out["sjpc"].counters
+    a, b = counters[0, 0], counters[1, 0]
+    t, w = a.shape
+    j1, _ = device_ms(lambda: ksm.sketch_moments(a, b), 100, flush)
+    j2, _ = device_ms(lambda: ksm.sketch_moments(a, b), 100, flush)
+    jp, _ = device_ms(lambda: ref.sketch_moments_ref(a, b), 10, flush)
+    require(equal(ksm.sketch_moments(a, b), ref.sketch_moments_ref(a, b)),
+            "sketch_moments join: timed output differs from the plain version")
+    jb, jby = bound_ms(2 * a.numel() * 4 + t * 4, a.numel())
+    row.update({"join_ms": min(j1, j2), "join_plain_ms": jp, "join_bound_ms": jb,
+                "join_bound_by": jby})
+    log(f"time sketch_moments join ({t}, {w}) x 2: kernel {j1:.4f}/{j2:.4f} ms, plain "
+        f"{jp:.4f} ms, bound {jb:.7f} ms ({jby})")
+    wide = counter_stack(np.random.default_rng(65536), device, (3, 65536), 1 << 20)
+    want = ref.sketch_moments_ref(wide, wide)
+    one_cta = moments_capped(1)
+    require(equal(ksm.sketch_moments(wide, wide), want) and equal(one_cta(wide, wide), want),
+            "sketch_moments (3, 65536): a design differs from the plain version")
+    k1, _ = device_ms(lambda: ksm.sketch_moments(wide, wide), 100, flush)
+    o1, _ = device_ms(lambda: one_cta(wide, wide), 100, flush)
+    o2, _ = device_ms(lambda: one_cta(wide, wide), 100, flush)
+    k2, _ = device_ms(lambda: ksm.sketch_moments(wide, wide), 100, flush)
+    wp, _ = device_ms(lambda: ref.sketch_moments_ref(wide, wide), 10, flush)
+    wb, wby = bound_ms(wide.numel() * 4 + 3 * 4, wide.numel())
+    row.update({"wide_shape": list(wide.shape), "wide_ms": min(k1, k2),
+                "wide_design": "a cluster of up to 8 CTAs per row",
+                "wide_not_kept_ms": min(o1, o2), "wide_not_kept": "one CTA per row",
+                "wide_plain_ms": wp, "wide_bound_ms": wb, "wide_bound_by": wby})
+    log(f"time sketch_moments F2 (3, 65536): cluster {k1:.4f}/{k2:.4f} ms, one CTA per row "
+        f"{o1:.4f}/{o2:.4f} ms (turns K O O K), plain {wp:.4f} ms, bound {wb:.7f} ms ({wby})")
+
+
 def sampling_work(cfg, weights: torch.Tensor) -> tuple[int, int]:
     """(bytes, int32 operations) of one round's sampling weights
     ``weights`` (B, L, m_max), drawn with no row mask: the output written
@@ -1459,11 +1534,15 @@ def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
         err = max(float((g.double() - h.double()).abs().max()) for g, h in zip(got, want))
         require(err == 0.0, f"{name}: timed output differs from the plain version")
         b_ms, b_by = bound_ms(nbytes, ops)
+        launches_by_path = {path: counts[name] for path, counts in by_path.items()}
+        if name in CROSS_CHECK_ONLY:
+            launches_by_path = {(f"{path}: {CROSS_CHECK_ONLY[name]}" if n else path): n
+                                for path, n in launches_by_path.items()}
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{SOURCES[name]}",
                      "replaces": REPLACES[name],
                      "launches": sum(counts[name] for counts in by_path.values()),
-                     "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+                     "launches_by_path": launches_by_path,
                      "max_abs_err": err, "ms": min(k1, k2), "plain_ms": min(p1, p2),
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
                      "library": library_note})
@@ -1480,6 +1559,8 @@ def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
                      flush)
     time_pairs_shape(pairs_row, "bootstrap", *bootstrap_pairs_args(device, cfg, est_out), flush)
     torch.cuda.empty_cache()
+    time_moments_shapes(next(row for row in rows if row["name"] == "sketch_moments"), est_out,
+                        flush, device)
     # the per-launch floor: an empty kernel between the same CUDA events
     f1, _ = device_ms(lambda: torch.cuda._sleep(0), 100, flush)
     f2, _ = device_ms(lambda: torch.cuda._sleep(0), 100, flush)

@@ -1,6 +1,6 @@
 // Exact row moments sum_j A[j] * B[j] of int32 counter rows, one warp per
-// row, as a device function shared by fused_query.cu and
-// sketch_moments.cu.
+// row, as a device function of fused_query.cu, its one user
+// (sketch_moments.cu walks a row with a CTA or a cluster of its own).
 //
 // The lanes stride the row with coalesced 4-byte loads and accumulate in
 // 64-bit integers (exact: no rounding however large the sums), reduce

@@ -205,7 +205,7 @@ def _ptxas_report(name):
 
 
 @pytest.mark.parametrize("name", ["sample_weights", "fingerprint", "fused_pairs",
-                                  "sketch_update"])
+                                  "sketch_update", "sketch_moments"])
 def test_kernels_build_without_spills(cuda, name):
     """ptxas (-Xptxas -v) reports no spill and no stack frame for any
     function of the source: the composite keys, Horner state, i-rows,
@@ -339,14 +339,39 @@ def test_sketch_update_equals_plain(cuda, n, t, w, near_2_31):
     assert torch.equal(ksu.sketch_update(*args[:5], zero), counters)
 
 
-@pytest.mark.parametrize("t,w", [(1, 64), (3, 1024), (5, 65536)])
-def test_sketch_moments_equals_plain(cuda, t, w):
-    rng = np.random.default_rng(t * w)
-    a, b = (torch.from_numpy(rng.integers(-(2**20), 2**20, size=(t, w)).astype(np.int32))
-            .to(cuda) for _ in range(2))
-    assert torch.equal(ksm.sketch_moments(a, b), ref.sketch_moments_ref(a, b))
-    assert torch.equal(ksm.sketch_moments(a, a), kfq.fused_query(a[None, None],
-                                                                 a[None, None])[0, 0])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("w", [1, 3, 64, 1000, 1024, 2048, 4096, 65536])
+@pytest.mark.parametrize("t", [1, 3, 5])
+def test_sketch_moments_equals_plain(cuda, t, w, offset):
+    """Rows that are views at element offset 0 (int4 loads where w % 4 ==
+    0) and 1 (4-byte loads) of a larger buffer, counters up to 2^20 and
+    over the whole int32 range: the join and F2 (one pointer, and a copy)
+    equal the plain version, F2 also fused_query's rows; one launch per
+    call."""
+    rng = np.random.default_rng(t * w + offset)
+    for magnitude in (2**20, 2**31):
+        a, b = (torch.from_numpy(rng.integers(-magnitude, magnitude, size=t * w + offset)
+                                 .astype(np.int32)).to(cuda)[offset:].view(t, w)
+                for _ in range(2))
+        assert a.data_ptr() % 16 == 4 * offset
+        launches = ksm.launches
+        assert torch.equal(ksm.sketch_moments(a, b), ref.sketch_moments_ref(a, b))
+        f2 = ksm.sketch_moments(a, a)
+        assert torch.equal(f2, ref.sketch_moments_ref(a, a))
+        assert torch.equal(ksm.sketch_moments(a, a.clone()), f2)
+        assert ksm.launches == launches + 3
+        assert torch.equal(f2, kfq.fused_query(a[None, None], a[None, None])[0, 0])
+
+
+def test_sketch_moments_empty_shapes(cuda):
+    """t == 0 launches nothing; w == 0 gives zeros."""
+    launches = ksm.launches
+    empty = torch.zeros((0, 1024), dtype=torch.int32, device=cuda)
+    assert ksm.sketch_moments(empty, empty).shape == (0,)
+    assert ksm.launches == launches
+    zero = torch.zeros((3, 0), dtype=torch.int32, device=cuda)
+    assert torch.equal(ksm.sketch_moments(zero, zero), torch.zeros(3, device=cuda))
+    assert ksm.launches == launches + 1
 
 
 @pytest.mark.parametrize("kind", ["sjpc", "reservoir", "lsh_ss"])
