@@ -20,6 +20,19 @@ w=1024, t=3):
   4,096 records (the unfused SJPC path on 8 of them), the window algebra,
   ``estimate_batch`` with bootstrap error bars over the 64 streams and over
   1,024 tenants, and the per-stream level F2 through ``sketch_moments``;
+* the multi-tenant estimation service (``service`` phase): 288 tenants in
+  two hash groups of the paper's config (``dblp/a``, ``dblp/b``; 128 SJPC
+  tenants each, and in ``dblp/b`` 16 reservoir tenants with two backing
+  epochs and 16 LSH-SS tenants), 4,096 ``shingle_records`` per tenant per
+  epoch in rounds of 512, 6 epochs over a window of 4, 928 standing
+  queries (1,024 result cells) polled twice per epoch, the second poll all
+  cache hits.  Held against a plain twin (``impl="torch_ref"``) of a
+  pinned-uid subset of every kind and both groups and an unfused service
+  over 16 SJPC tenants, bit for bit; windows W1-W3; planner and
+  observability off give the same results; every service span's total
+  covers its dispatch and the card's time for its flush.  The kernel
+  service's own calls count as path ``service``, the unfused service's as
+  ``service_unfused``;
 * the dense serving path (``serve`` phase): qwen2.5-3b at full width and
   depth (36 layers, d_model 2048, GQA 16:2, head_dim 128, vocab 151,936),
   random f32 weights from a seeded ``torch.Generator`` on the card, 4
@@ -57,6 +70,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
+import io
 import itertools
 import json
 import math
@@ -94,7 +109,8 @@ from repro_torch.kernels import sketch_update as ksu  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.config import compute_dims  # noqa: E402
-from repro_torch.obs import metrics  # noqa: E402
+from repro_torch import service as svc_mod  # noqa: E402
+from repro_torch.obs import Observability, Tracer, metrics  # noqa: E402
 from repro_torch.service.ingest import ingest_key, ingest_key_grid  # noqa: E402
 from repro_torch.sketchstream import monitor as mon  # noqa: E402
 
@@ -147,6 +163,29 @@ KINDS = ("sjpc", "reservoir", "lsh_ss")
 # the kinds whose ingest and query launch kernels; LSH-SS is host and plain
 # PyTorch code with no kernel, so its plain path would be the same code
 KERNEL_KINDS = ("sjpc", "reservoir")
+
+# The service phase: the multi-tenant service at the paper's DBLPtitles
+# group (configs/sjpc_paper: d=6, s=3, r=0.5, w=1000 -> 1024, t=3) in two
+# hash groups of that config, so that the planner fuses across them: 128
+# SJPC tenants in each, and in dblp/b also 16 reservoir tenants with
+# backing_epochs=2 and 16 LSH-SS tenants at their factories' equal-space
+# sizes.  Each tenant gets 4,096 shingle_records per epoch, seeded by
+# (tenant, epoch): 1,179,648 records in 8 rounds of 512 per flush; 6
+# epochs over a window of 4, so every window expires twice.
+SVC_GROUPS = ("dblp/a", "dblp/b")
+SVC_SJPC = 128
+SVC_SAMPLE = 16
+SVC_BACKING = 2
+SVC_ROWS = 4096
+SVC_BATCH_ROWS = 512
+SVC_WINDOW = 4
+SVC_EPOCHS = 6
+SVC_SEED = 2020
+SVC_TWIN_SJPC = 2      # SJPC tenants per group in the two small twins
+SVC_TWIN_SAMPLE = 2    # tenants per sample kind in the two small twins
+SVC_UNFUSED = 16       # SJPC tenants of dblp/a in the unfused service
+SVC_SPIN_S = 1.0       # the spin ahead of epoch 0's flush (the span gate)
+SVC_PROBE_S = 0.2      # the spin inside the Span.sync probe
 
 # The serve phase: qwen2.5-3b, 4 prompts of 10,240 tokens (5 x the 2048
 # attention chunk, above the 8192-token threshold of the flash branch; the
@@ -1003,22 +1042,28 @@ def serve_prompts(vocab: int) -> np.ndarray:
     return prompts
 
 
-def profiled(fn):
+def profiled(fn, host_ops: bool = True):
     """``fn()`` under ``torch.profiler``: (host seconds from a synchronised
     start to a synchronised end, device seconds summed over its kernels,
-    the five kernels with the most device time as (name, ms), the result).
-    One stream, so the device seconds over the host seconds is the card's
-    busy share."""
+    the five kernels with the most device time as (name, ms), the result,
+    the device-to-host copies).  One stream, so the device seconds over the
+    host seconds is the card's busy share.  ``host_ops=False`` records the
+    card's activity alone, which is all these numbers read, and spares the
+    profiler the processing of every host op of a call that makes
+    thousands of launches."""
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with torch.profiler.profile(activities=activities) as prof:
         seconds, out = synced_s(fn)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     top = sorted(((e.key[:60], e.self_device_time_total / 1e3) for e in kernels),
                  key=lambda t: -t[1])[:5]
-    return seconds, busy, top, out
+    dtoh = sum(1 for e in prof.events() if "DtoH" in e.name or "Device -> Pageable" in e.name)
+    return seconds, busy, top, out, dtoh
 
 
 def log_profile(what: str, seconds: float, busy: float, top) -> None:
@@ -1453,6 +1498,441 @@ def sampling_work(cfg, weights: torch.Tensor) -> tuple[int, int]:
     return B * L * m_max * 4 + 12, THREEFRY_OPS * blocks
 
 
+# ---------------------------------------------------------------------------
+# the multi-tenant estimation service
+# ---------------------------------------------------------------------------
+
+def service_tenants():
+    """(name, group, kind, uid, index): 128 SJPC tenants in each group, and
+    in dblp/b 16 reservoir and 16 LSH-SS tenants; uids dense in this
+    order, pinned in every service of the phase."""
+    tenants = []
+    for group in SVC_GROUPS:
+        tenants += [(f"{group}/sjpc{i:03d}", group, "sjpc", 0, i) for i in range(SVC_SJPC)]
+    for kind in ("reservoir", "lsh_ss"):
+        tenants += [(f"dblp/b/{kind}{i:02d}", "dblp/b", kind, 0, i) for i in range(SVC_SAMPLE)]
+    return [(name, group, kind, uid, i) for uid, (name, group, kind, _, i) in enumerate(tenants)]
+
+
+def service_queries(tenants):
+    """768 self-joins (three per SJPC tenant, s spread over 3..6), 128
+    joins of tenant pairs within a group, and all_thresholds on each of the
+    32 sample-kind tenants: 928 standing queries, 1,024 result cells."""
+    sjpc_tenants = [t for t in tenants if t[2] == "sjpc"]
+    queries = [(f"self/{name}/{j}", "self_join", (name,), 3 + (i + j) % 4)
+               for i, (name, *_) in enumerate(sjpc_tenants) for j in range(3)]
+    for group in SVC_GROUPS:
+        members = [t[0] for t in sjpc_tenants if t[1] == group]
+        queries += [(f"join/{members[i]}", "join", (members[i], members[i + 1]), 3 + i // 2 % 4)
+                    for i in range(0, len(members), 2)]
+    queries += [(f"all/{name}", "all_thresholds", (name,), None)
+                for name, _, kind, _, _ in tenants if kind != "sjpc"]
+    return queries
+
+
+def private_obs(sink=None):
+    """An observability bundle of its own: ``reset_counts`` clears the
+    default registry, which the kernels' dispatch counters use."""
+    registry = metrics.MetricsRegistry()
+    return Observability(metrics=registry, tracer=Tracer(sink=sink, registry=registry))
+
+
+def make_service(tenants, queries, obs=None, **cfg_kw):
+    """A service of ``tenants`` (uids pinned) with the queries whose streams
+    it holds."""
+    svc = svc_mod.EstimationService(svc_mod.ServiceConfig(
+        batch_rows=SVC_BATCH_ROWS, window_epochs=SVC_WINDOW, **cfg_kw), obs=obs)
+    for group in SVC_GROUPS:
+        if any(t[1] == group for t in tenants):
+            svc.create_group(group, PAPER_DEFAULTS)
+    for name, group, kind, uid, _ in tenants:
+        svc.create_stream(name, group, estimator=kind, uid=uid,
+                          backing_epochs=SVC_BACKING if kind == "reservoir" else 0)
+    held = {t[0] for t in tenants}
+    for name, kind, streams, s in queries:
+        if held.issuperset(streams):
+            svc.register_continuous(svc_mod.ContinuousQuery(name, kind, streams, s))
+    return svc
+
+
+def service_records(tenants, epoch):
+    """Each tenant's 4,096 shingle_records of this epoch, seeded by (tenant,
+    epoch)."""
+    return {name: shingle_records(SVC_ROWS, d=6, seed=(SVC_SEED, uid, epoch), group=6,
+                                  dup_profile=QUICKSTART_DUPS)
+            for name, _, _, uid, _ in tenants}
+
+
+def same_result(a, b) -> bool:
+    """Two served results (a QueryResult or an all-thresholds dict) equal
+    in every field, bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_result(a[k], b[k]) for k in a)
+    return (a._replace(per_level=None) == b._replace(per_level=None)
+            and np.array_equal(a.per_level, b.per_level))
+
+
+def same_results(a: dict, b: dict, names) -> bool:
+    return all(same_result(a[name], b[name]) for name in names)
+
+
+def result_cells(out: dict):
+    for res in out.values():
+        yield from (res.values() if isinstance(res, dict) else (res,))
+
+
+class SyncMarks:
+    """Records a CUDA event just before every ``torch.cuda.synchronize``
+    inside the block: the last one marks the end of the work enqueued by
+    then."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        self._real = torch.cuda.synchronize
+
+        def marked(device=None):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.events.append(event)
+            self._real(device)
+
+        torch.cuda.synchronize = marked
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize = self._real
+        return False
+
+
+def flush_events(buf: io.StringIO, start: int):
+    """The tracer's JSON-lines events written since character ``start``."""
+    return [json.loads(line) for line in buf.getvalue()[start:].splitlines()]
+
+
+def check_spans(buf, mark, t_rec, start, marks, spin_ms=None) -> dict:
+    """Gate 6 on one flush of the kernel service: every service.flush and
+    ingest.flush_cohort span has total >= dispatch; the card's time from a
+    start event (recorded at host time ``t_rec``) to the flush's last
+    synchronize lies inside the host interval from ``t_rec`` to the end of
+    the last service.flush span.  That much holds whether or not
+    ``Span.sync`` waits, since ``_flush_group`` synchronises inside its
+    span.  What tests ``Span.sync`` is the spin: with a spin ahead of the
+    flush, the first cohort span (whose own ``Span.sync`` is its only
+    wait) lasts at least as long as the spin had left to run when the span
+    opened; and ``check_span_sync``'s probe."""
+    events = flush_events(buf, mark)
+    flushes = [e for e in events if e["name"] == "service.flush"]
+    cohorts = [e for e in events if e["name"] == "ingest.flush_cohort"]
+    require(len(flushes) == len(SVC_GROUPS) and cohorts, f"spans of the flush: {len(flushes)}")
+    for e in flushes + cohorts:
+        require(e["total_ms"] >= e["dispatch_ms"], f"span {e['path']}: total < dispatch")
+    require(bool(marks.events), "the flush never synchronised")
+    device_ms = start.elapsed_time(marks.events[-1])
+    end = max(e["ts"] + e["total_ms"] / 1e3 for e in flushes)
+    host_ms = (end - t_rec) * 1e3
+    require(device_ms <= host_ms + 0.01,
+            f"flush: device {device_ms:.3f} ms outlasts its spans ({host_ms:.3f} ms)")
+    out = {"device_ms": device_ms, "host_ms": host_ms,
+           "flush_total_ms": sum(e["total_ms"] for e in flushes),
+           "flush_dispatch_ms": sum(e["dispatch_ms"] for e in flushes)}
+    if spin_ms is not None:
+        first = min(cohorts, key=lambda e: e["ts"])
+        left = spin_ms - (first["ts"] - t_rec) * 1e3
+        require(first["total_ms"] >= left,
+                f"cohort span {first['total_ms']:.3f} ms ended before the spin "
+                f"({left:.3f} ms left): Span.sync did not wait for the card")
+        out.update(spin_ms=spin_ms, spin_left_ms=left, cohort_total_ms=first["total_ms"],
+                   cohort_dispatch_ms=first["dispatch_ms"])
+    return out
+
+
+def check_span_sync(device) -> dict:
+    """``Span.sync`` alone: a span around a spin of the card and one small
+    launch whose output it registers.  The body returns at once (dispatch
+    shorter than the spin); the span's total covers the spin, timed by
+    CUDA events recorded inside the span."""
+    tracer = Tracer()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with tracer.span("probe") as sp:
+        start.record()
+        torch.cuda._sleep(int(SVC_PROBE_S * SLEEP_CYCLES_PER_S))
+        stop.record()
+        sp.sync(torch.ones(1, device=device) + 1)
+    spin_ms = start.elapsed_time(stop)
+    require(sp.dispatch_s * 1e3 < spin_ms <= sp.total_s * 1e3,
+            f"Span.sync: dispatch {sp.dispatch_s * 1e3:.3f} ms, spin {spin_ms:.3f} ms, "
+            f"total {sp.total_s * 1e3:.3f} ms")
+    return {"probe_dispatch_ms": sp.dispatch_s * 1e3, "probe_spin_ms": spin_ms,
+            "probe_total_ms": sp.total_s * 1e3}
+
+
+def check_windows_w1_w3(svc, out) -> None:
+    """W1: every SJPC total equals the sum of its live ring slots; W3: every
+    window's n >= 0 and every clamped served estimate >= 0."""
+    for e in svc.registry.streams():
+        require(float(e.window.total.n) >= 0, f"W3: {e.name} n < 0")
+        if e.estimator_kind == "sjpc":
+            require(same_state(e.window.ring_sum(), e.window.total),
+                    f"W1: {e.name} total != ring sum")
+    for r in result_cells(out):
+        require(r.estimate >= 0 and bool((np.asarray(r.per_level) >= 0).all()),
+                f"W3: {r.streams} s={r.s} estimate {r.estimate}")
+
+
+def check_window_w2(svc, tenants, history) -> None:
+    """W2: each SJPC total equals a sketch rebuilt from only the live
+    epochs' records under ``ingest_key(cfg, uid, round)``: one multi-round
+    ingest per group from empty states."""
+    live = list(range(SVC_EPOCHS - SVC_WINDOW + 1, SVC_EPOCHS))
+    per_epoch = SVC_ROWS // SVC_BATCH_ROWS
+    for group in SVC_GROUPS:
+        members = [t for t in tenants if t[1] == group and t[2] == "sjpc"]
+        est = svc.registry.group(group).estimator("sjpc")
+        values = np.stack([np.concatenate([history[ep][name] for ep in live])
+                           .reshape(len(live) * per_epoch, SVC_BATCH_ROWS, 6)
+                           for name, *_ in members], axis=1)
+        mask = np.ones(values.shape[:3], np.int32)
+        rounds = np.broadcast_to(np.arange(live[0] * per_epoch, (live[-1] + 1) * per_epoch)
+                                 [:, None], values.shape[:2])
+        keys = ingest_key_grid(est.ingest_seed, [t[3] for t in members], rounds)
+        rebuilt = est.ingest_rounds(E.stack_states([est.init() for _ in members]), values,
+                                    mask, keys)
+        for i, (name, *_) in enumerate(members):
+            total = svc.registry.stream(name).window.total
+            require(equal(rebuilt.counters[i], total.counters)
+                    and equal(rebuilt.n[i], total.n), f"W2: {name} != the live epochs' rebuild")
+    log(f"service W2: {len(SVC_GROUPS) * SVC_SJPC} SJPC windows equal a rebuild from only "
+        f"the live epochs {live} under ingest_key")
+
+
+@contextlib.contextmanager
+def timed_stage(stages: dict, name: str):
+    """Adds the host seconds of the block to ``stages[name]``."""
+    t0 = time.perf_counter()
+    yield
+    stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
+
+
+def phase_service(device) -> dict:
+    """The multi-tenant service at the DBLPtitles group: 288 tenants in two
+    hash groups of the paper config, 4,096 records each per epoch, 6
+    epochs over a 4-epoch window, 928 standing queries polled twice per
+    epoch.  Gates: a plain twin (``impl="torch_ref"``) of a pinned-uid
+    subset of every kind and both groups, bit for bit; an unfused service
+    over 16 SJPC tenants, bit for bit; W1-W3; a twin of the subset with
+    planner and observability off, and the planner alone off at the end,
+    giving the same results; every dispatch on the kernels; the spans'
+    device-inclusive totals.  The kernel service's calls alone count as
+    path ``service``, the unfused service's as ``service_unfused``.
+    Returns both paths' launch counts."""
+    stages: dict[str, float] = {}
+
+    stage = functools.partial(timed_stage, stages)
+    t_phase = time.perf_counter()
+    tenants = service_tenants()
+    queries = service_queries(tenants)
+    subset = [t for t in tenants if t[4] < (SVC_TWIN_SJPC if t[2] == "sjpc" else SVC_TWIN_SAMPLE)]
+    unfused_tenants = [t for t in tenants if t[1] == SVC_GROUPS[0]][:SVC_UNFUSED]
+    trace = io.StringIO()
+    with stage("construction"):
+        main = make_service(tenants, queries, obs=private_obs(sink=trace))
+        quiet = make_service(subset, queries, observe=False, use_planner=False)
+        plain = make_service(subset, queries, obs=private_obs(), impl="torch_ref")
+        unfused = make_service(unfused_tenants, (), obs=private_obs(), use_fused=False)
+    require(main.device.type == "cuda" and main.cfg.impl is None, "service device")
+    log(f"service: {len(tenants)} tenants ({2 * SVC_SJPC} sjpc in {len(SVC_GROUPS)} groups, "
+        f"{SVC_SAMPLE} reservoir with backing_epochs={SVC_BACKING}, {SVC_SAMPLE} lsh_ss), "
+        f"{len(queries)} standing queries; plain twin and planner/observability-off twin "
+        f"{len(subset)} tenants each, unfused {len(unfused_tenants)}")
+    history = []
+    timing = {"flush": [], "poll": [], "poll_cached": [], "snapshot": [], "advance": []}
+    with stage("span probe"):
+        spans = [check_span_sync(device)]
+    counted, unfused_counted = PathCounts(), PathCounts()
+    metrics_main = main.obs.metrics
+    for epoch in range(SVC_EPOCHS):
+        with stage("records"):
+            recs = service_records(tenants, epoch)
+        history.append({t[0]: recs[t[0]] for t in tenants if t[2] == "sjpc"})
+        with stage("ingest (buffering)"):
+            with counted.run():
+                for name, *_ in tenants:
+                    main.ingest(name, recs[name])
+            with unfused_counted.run():
+                for name, *_ in unfused_tenants:
+                    unfused.ingest(name, recs[name])
+            for svc, held in ((quiet, subset), (plain, subset)):
+                for name, *_ in held:
+                    svc.ingest(name, recs[name])
+        # the kernel service's flush, timed and traced; epoch 0 behind a spin
+        mark = len(trace.getvalue())
+        torch.cuda.synchronize()
+        start, spin_end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t_rec = time.time()
+        start.record()
+        if epoch == 0:
+            torch.cuda._sleep(int(SVC_SPIN_S * SLEEP_CYCLES_PER_S))
+        spin_end.record()
+        with counted.run(), SyncMarks() as marks:
+            t0 = time.perf_counter()
+            main.flush()
+        torch.cuda.synchronize()
+        timing["flush"].append(time.perf_counter() - t0)
+        spin_ms = start.elapsed_time(spin_end) if epoch == 0 else None
+        spans.append(check_spans(trace, mark, t_rec, start, marks, spin_ms))
+        with counted.run():
+            seconds, _ = synced_s(main.advance_epoch)
+        timing["advance"].append(seconds)
+        with counted.run():
+            seconds, out = synced_s(main.poll)
+        timing["poll"].append(seconds)
+        # a second poll with no new data: all cache hits, no launch
+        before = (metrics_main.counter_total("query_cache_misses_total"),
+                  metrics_main.counter_total("query_cache_hits_total"))
+        with counted.run():
+            seconds, again = synced_s(main.poll)
+            cached_launches = (kfq.launches, kpairs.launches)
+        timing["poll_cached"].append(seconds)
+        require(metrics_main.counter_total("query_cache_misses_total") == before[0]
+                and metrics_main.counter_total("query_cache_hits_total") > before[1]
+                and cached_launches == (0, 0) and same_results(out, again, out),
+                f"service epoch {epoch}: the second poll was not all cache hits")
+        with counted.run():
+            seconds, _ = synced_s(main.snapshot)
+        timing["snapshot"].append(seconds)
+        with stage("unfused"), unfused_counted.run():
+            unfused.flush()
+            unfused.advance_epoch()
+            torch.cuda.synchronize()
+        with stage("planner/observability-off twin"):
+            quiet.flush()
+            quiet.advance_epoch()
+            quiet_out = quiet.poll()
+        with stage("plain twin"), oracle_calls():
+            plain.flush()
+            plain.advance_epoch()
+            plain_out = plain.poll()
+        with stage("gates"):
+            # gate 1: the plain twin, bit for bit
+            for name, *_ in subset:
+                require(same_state(main.registry.stream(name).window.total,
+                                   plain.registry.stream(name).window.total),
+                        f"service epoch {epoch}: {name} window != the plain twin's")
+            require(same_results(out, plain_out, plain_out),
+                    f"service epoch {epoch}: results != the plain twin's")
+            # gate 2: unfused counters
+            for name, *_ in unfused_tenants:
+                require(same_state(main.registry.stream(name).window.total,
+                                   unfused.registry.stream(name).window.total),
+                        f"service epoch {epoch}: {name} unfused window != fused")
+            # gate 4: planner and observability off
+            require(same_results(out, quiet_out, quiet_out),
+                    f"service epoch {epoch}: results with planner and obs off differ")
+            check_windows_w1_w3(main, out)
+    for name in ("flush", "advance", "poll", "poll_cached", "snapshot"):
+        stages[f"main {name}"] = sum(timing[name])
+    per_epoch = SVC_ROWS // SVC_BATCH_ROWS
+    main_calls = SVC_EPOCHS * per_epoch * len(SVC_GROUPS) * SVC_SJPC
+    launches = read_counts("service", ("fused_ingest", "sample_weights", "fused_query",
+                                       "fused_pairs"), sampling_calls=main_calls, counts=counted)
+    require(launches["fused_ingest"] == main_calls
+            and launches["fingerprint"] == launches["sketch_update"] == 0,
+            f"service: {launches['fused_ingest']} fused_ingest launches for {main_calls} SJPC "
+            f"update calls, {launches['fingerprint']} fingerprint and "
+            f"{launches['sketch_update']} sketch_update on the fused path")
+    unfused_calls = SVC_EPOCHS * per_epoch * SVC_UNFUSED
+    unfused_launches = read_counts("service_unfused", ("sample_weights", "fingerprint",
+                                                       "sketch_update"),
+                                   sampling_calls=unfused_calls, counts=unfused_counted)
+    require(unfused_launches["fused_ingest"] == 0,
+            f"service_unfused: {unfused_launches['fused_ingest']} fused_ingest launches")
+    with stage("W2 rebuild"):
+        check_window_w2(main, tenants, history)
+    with stage("planner-off check"):
+        # the planner alone off, at the last state
+        snap = svc_mod.QueryEngine(main.registry).snapshot()
+        snap.prefetch(main._continuous.values())
+        off = {name: q.evaluate(snap) for name, q in main._continuous.items()}
+        require(same_results(out, off, out), "service: planner-off results differ")
+    log(f"service gates: plain twin ({len(subset)} tenants, every kind, both groups) and "
+        f"unfused ({len(unfused_tenants)} tenants) bit-equal at every epoch; W1, W3 at every "
+        f"epoch; planner and observability off ({len(quiet_out)} queries) at every epoch and "
+        f"the planner alone off at the end equal; {len(out)} queries, "
+        f"{sum(1 for _ in result_cells(out))} result cells")
+    stages["unstaged"] = time.perf_counter() - t_phase - sum(stages.values())
+    return {"launches": launches, "launches_unfused": unfused_launches, "timing": timing,
+            "spans": spans, "stages": stages, "main": main, "tenants": tenants}
+
+
+def service_numbers(svc_out, smi: str) -> None:
+    """Printed, not gated: flush throughput, poll / snapshot /
+    advance_epoch latencies, the flush time with observability on over
+    off, and one torch.profiler capture of a flush and of a poll.  All of
+    it after the gated run, so not counted."""
+    timing, main, tenants = svc_out["timing"], svc_out["main"], svc_out["tenants"]
+    stages = svc_out["stages"]
+    steady = slice(1, None)            # epoch 0's flush ran behind the spin
+    per_flush = len(tenants) * SVC_ROWS
+    flush_med = float(np.median(timing["flush"][steady]))
+    p50 = {k: float(np.median(v[steady])) * 1e3 for k, v in timing.items()}
+    log(f"service ({smi}): flush {per_flush} records in {flush_med * 1e3:.1f} ms median "
+        f"(epochs 1-{SVC_EPOCHS - 1}, host clock to a synchronise): {per_flush / flush_med:.0f} "
+        f"records/s; all flushes (s): {' '.join(f'{x:.4f}' for x in timing['flush'])}")
+    log(f"service ({smi}): p50 poll {p50['poll']:.2f} ms, cached poll {p50['poll_cached']:.2f} "
+        f"ms, snapshot {p50['snapshot']:.2f} ms, advance_epoch {p50['advance']:.2f} ms "
+        f"(epochs 1-{SVC_EPOCHS - 1})")
+    log("service span probe: " + ", ".join(f"{k} {v:.3f}" for k, v in svc_out["spans"][0].items()))
+    for i, sp in enumerate(svc_out["spans"][1:]):
+        log(f"service spans epoch {i}: " + ", ".join(f"{k} {v:.3f}" for k, v in sp.items()))
+
+    stage = functools.partial(timed_stage, stages)
+    # observability on over off: two fresh services of the same tenants and
+    # age (no queries), one observed as the kernel service is, one with
+    # observe=False, given one more epoch's records and flushed in the
+    # order on, off (each one's first flush, not timed), then on, off,
+    # off, on, the same records again before each flush
+    with stage("numbers: records"):
+        recs = service_records(tenants, SVC_EPOCHS)
+    with stage("numbers: observability on/off"):
+        lit = make_service(tenants, (), obs=private_obs(sink=io.StringIO()))
+        dark = make_service(tenants, (), observe=False)
+        flush_s = {True: [], False: []}
+        for i, svc in enumerate((lit, dark, lit, dark, dark, lit)):
+            for name, *_ in tenants:
+                svc.ingest(name, recs[name])
+            seconds, _ = synced_s(svc.flush)
+            if i >= 2:
+                flush_s[svc is lit].append(seconds)
+        del lit, dark
+    on, off = flush_s[True], flush_s[False]
+    log(f"service ({smi}): observability on/off flush time {sum(on) / sum(off):.4f} (on "
+        f"{' '.join(f'{x * 1e3:.1f}' for x in on)} ms, off "
+        f"{' '.join(f'{x * 1e3:.1f}' for x in off)} ms; two fresh services of the "
+        f"{len(tenants)} tenants given one more epoch's records, after one untimed flush "
+        f"each)")
+    with stage("numbers: profiled flush"):
+        for name, *_ in tenants:
+            main.ingest(name, recs[name])
+        seconds, busy, top, _, dtoh = profiled(main.flush, host_ops=False)
+    log_profile(f"service flush ({per_flush} records, {smi})", seconds, busy, top)
+    log(f"service flush: {dtoh} device-to-host copies")
+    with stage("numbers: profiled polls"):
+        seconds, busy, top, _, dtoh = profiled(main.poll, host_ops=False)
+        log_profile(f"service poll (fresh, {len(main._continuous)} queries, {smi})", seconds,
+                    busy, top)
+        log(f"service poll: {dtoh} device-to-host copies (synchronising reads) per fresh poll")
+        seconds, _, _, _, dtoh = profiled(main.poll, host_ops=False)
+        log(f"service poll (cached): {seconds * 1e3:.2f} ms host, {dtoh} device-to-host copies")
+    with stage("numbers: describe, metrics report"):
+        groups, lines = len(main.describe()["groups"]), len(main.metrics_report().splitlines())
+    log(f"service describe: {groups} groups; metrics report {lines} lines")
+    log("service phase host seconds by stage: " + "; ".join(
+        f"{k} {v:.2f}" for k, v in sorted(stages.items(), key=lambda kv: -kv[1])))
+
+
 def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
     """Kernel, plain-version and library times at the main path's shapes,
     with the bound of each; ``by_path`` holds each path's launches."""
@@ -1590,16 +2070,45 @@ def reset_counts() -> None:
     metrics.default_registry().clear()
 
 
-def read_counts(path: str, kernels, sampling_calls: int | None = None) -> dict[str, int]:
-    """The launches of the path just run.  Raises unless each of its
-    ``kernels`` launched, and unless every dispatch of the path resolved to
-    the hand-written kernel; with ``sampling_calls``, unless the path's
-    ``sample_weights`` dispatches and launches were exactly that many (one
-    per SJPC update call)."""
-    torch.cuda.synchronize()
+def current_counts() -> tuple[dict[str, int], dict[tuple, float]]:
+    """Every kernel's launch count and the ``kernel_dispatch_total`` series
+    since the last ``reset_counts``."""
     launches = {name: getattr(module, attr) for name, (module, attr, _) in COUNTS.items()}
+    return launches, dict(metrics.default_registry().series("kernel_dispatch_total"))
+
+
+class PathCounts:
+    """The counts of a path whose calls interleave with other work: each
+    call runs inside ``run()``, which zeroes every count just before it
+    and adds them up just after."""
+
+    def __init__(self):
+        self.launches = dict.fromkeys(COUNTS, 0)
+        self.dispatch: dict[tuple, float] = {}
+
+    @contextlib.contextmanager
+    def run(self):
+        reset_counts()
+        yield
+        launches, dispatch = current_counts()
+        for name, n in launches.items():
+            self.launches[name] += n
+        for labels, n in dispatch.items():
+            self.dispatch[labels] = self.dispatch.get(labels, 0.0) + n
+
+
+def read_counts(path: str, kernels, sampling_calls: int | None = None,
+                counts: PathCounts | None = None) -> dict[str, int]:
+    """The launches of the path just run (or those ``counts`` added up).
+    Raises unless each of its ``kernels`` launched, and unless every
+    dispatch of the path resolved to the hand-written kernel; with
+    ``sampling_calls``, unless the path's ``sample_weights`` dispatches and
+    launches were exactly that many (one per SJPC update call)."""
+    torch.cuda.synchronize()
+    launches, series = ((counts.launches, counts.dispatch) if counts is not None
+                        else current_counts())
     dispatch: dict[str, float] = {}
-    for labels, count in metrics.default_registry().series("kernel_dispatch_total").items():
+    for labels, count in series.items():
         label = dict(labels)
         require(label["impl"] == registry.CUDA_SM90,
                 f"{path}: {label['kernel']} resolved to {label['impl']}")
@@ -1650,14 +2159,22 @@ def main() -> int:
     by_path["estimators"] = read_counts("estimators", tuple(k for k in KERNELS
                                                              if k != "flash_attention"),
                                         sampling_calls=sjpc_calls)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    t_service = time.perf_counter()
+    svc_out = phase_service(device)
+    by_path["service"] = svc_out["launches"]
+    by_path["service_unfused"] = svc_out["launches_unfused"]
+    service_numbers(svc_out, smi)
+    del svc_out
+    torch.cuda.empty_cache()
+    log(f"service phase: {time.perf_counter() - t_service:.1f} s")
     serve_out = phase_serve(device)
     by_path["serve"] = serve_out["launches"]
     by_path["serve_bf16"] = serve_out["launches_bf16"]
 
     rows = phase_numbers(device, cfg, params, records, tenants, by_path, est_out)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -213,18 +213,31 @@ def merge_tagged_samples(items_a, tags_a, n_a, items_b, tags_b, n_b, capacity: i
 class EstimatorSpec:
     """What every layer needs to know about an estimator kind.
 
+    Capability fields left ``None`` resolve from the instance attribute
+    (``est.linear`` / ``est.supports_join``); :func:`spec_of` performs that
+    resolution.
+
       factory(sjpc_cfg, *, params=None, estimator_cfg=None, opts=None,
               device=None) -> Estimator
+      fusion(est) -> hashable        the planner's fusion-signature config part
       exact_oracle(query_kind, records) -> (s -> float)  exact g replay
     """
     kind: str
-    factory: Callable
+    factory: Callable | None = None
     state_cls: type | None = None
     linear: bool | None = None
     join_capable: bool | None = None
     stderr_kind: str | None = None
+    fusion: Callable | None = None
     exact_oracle: Callable | None = None
     registrant: str = "?"
+
+    @property
+    def wire_mode(self) -> str:
+        """The delta mode this kind exports: linear kinds ship per-epoch
+        counter increments (``"merge"``), sample kinds replace their open
+        slot (``"replace"``)."""
+        return "merge" if self.linear else "replace"
 
 
 _REGISTRY: dict[str, EstimatorSpec] = {}
@@ -239,19 +252,19 @@ def _identity(fn):
 
 def _signature(sp: EstimatorSpec):
     return (sp.kind, _identity(sp.factory), _identity(sp.state_cls), sp.linear,
-            sp.join_capable, sp.stderr_kind, _identity(sp.exact_oracle))
+            sp.join_capable, sp.stderr_kind, _identity(sp.fusion), _identity(sp.exact_oracle))
 
 
 def register(kind: str, factory: Callable, *, state_cls: type | None = None,
              linear: bool | None = None, join_capable: bool | None = None,
-             stderr_kind: str | None = None,
+             stderr_kind: str | None = None, fusion: Callable | None = None,
              exact_oracle: Callable | None = None) -> EstimatorSpec:
     """Register an estimator kind.  Registering the same definitions again
     (a module imported twice or reloaded) is a no-op; a conflicting
     registration raises, naming both registrants."""
     new = EstimatorSpec(kind=kind, factory=factory, state_cls=state_cls, linear=linear,
                         join_capable=join_capable, stderr_kind=stderr_kind,
-                        exact_oracle=exact_oracle,
+                        fusion=fusion, exact_oracle=exact_oracle,
                         registrant=getattr(factory, "__module__", "?"))
     prev = _REGISTRY.get(kind)
     if prev is not None and _signature(prev) != _signature(new):
@@ -267,6 +280,23 @@ def spec(kind: str) -> EstimatorSpec:
     if kind not in _REGISTRY:
         raise KeyError(f"unknown estimator kind {kind!r}; available: {available()}")
     return _REGISTRY[kind]
+
+
+def spec_of(est: Estimator) -> EstimatorSpec:
+    """The resolved spec of an estimator instance: registered fields win,
+    ``None`` capability fields fall back to the instance's attributes.  An
+    instance of an unregistered kind gets a spec made from the instance
+    alone."""
+    kind = getattr(est, "kind", "abstract")
+    sp = _REGISTRY.get(kind)
+    if sp is None:
+        sp = EstimatorSpec(kind=kind, registrant=type(est).__module__)
+    updates = {}
+    if sp.linear is None:
+        updates["linear"] = bool(getattr(est, "linear", False))
+    if sp.join_capable is None:
+        updates["join_capable"] = bool(getattr(est, "supports_join", False))
+    return dataclasses.replace(sp, **updates) if updates else sp
 
 
 def available() -> list[str]:

@@ -403,6 +403,56 @@ def test_estimator_round_trip_on_the_card_equals_the_cpu(cuda, kind):
         np.testing.assert_array_equal(getattr(tg, field), getattr(tc, field))
 
 
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_service_on_the_card_equals_its_plain_twin(cuda, use_fused):
+    """A small service with every kind in two groups, three epochs over a
+    two-epoch window, on the card through the kernels and through the
+    plain versions (``impl="torch_ref"``): every window state and every
+    served result bit for bit."""
+    from repro_torch import service as svc_mod
+    cfg = sjpc.SJPCConfig(d=6, s=3, ratio=0.5, width=256, depth=3, seed=5)
+    streams = (("a", "g", "sjpc"), ("b", "g", "sjpc"), ("r", "g", "reservoir"),
+               ("l", "g", "lsh_ss"), ("c", "h", "sjpc"))
+    services = []
+    for impl in (None, "torch_ref"):
+        svc = svc_mod.EstimationService(svc_mod.ServiceConfig(
+            batch_rows=128, window_epochs=2, impl=impl, use_fused=use_fused))
+        assert svc.device.type == "cuda"
+        for gid in ("g", "h"):
+            svc.create_group(gid, cfg)
+        for name, gid, kind in streams:
+            svc.create_stream(name, gid, estimator=kind,
+                              backing_epochs=1 if kind == "reservoir" else 0)
+        for q in (("qa", "self_join", ("a",)), ("qab", "join", ("a", "b")),
+                  ("qc", "all_thresholds", ("c",)), ("qr", "all_thresholds", ("r",)),
+                  ("ql", "self_join", ("l",))):
+            svc.register_continuous(svc_mod.ContinuousQuery(*q))
+        services.append(svc)
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        batch = {name: rng.integers(0, 5, size=(300, 6)).astype(np.uint32)
+                 for name, _, _ in streams}
+        outs = []
+        for svc in services:
+            for name, rows in batch.items():
+                svc.ingest(name, rows)
+            svc.advance_epoch()
+            outs.append(svc.poll())
+        kernel, plain = services
+        for name, _, _ in streams:
+            for leaf_k, leaf_p in zip(kernel.registry.stream(name).window.total,
+                                      plain.registry.stream(name).window.total):
+                assert leaf_k.is_cuda and torch.equal(leaf_k, leaf_p), name
+        assert outs[0].keys() == outs[1].keys()
+        for qname in outs[0]:
+            got, want = outs[0][qname], outs[1][qname]
+            cells = zip(got.values(), want.values()) if isinstance(got, dict) \
+                else [(got, want)]
+            for g, w in cells:
+                assert g._replace(per_level=None) == w._replace(per_level=None), qname
+                np.testing.assert_array_equal(g.per_level, w.per_level)
+
+
 def test_registry_resolves_cuda_tensors_to_the_kernels(cuda):
     from repro_torch.kernels.registry import kernel_registry
     reg = kernel_registry()
