@@ -33,6 +33,23 @@ w=1024, t=3):
   covers its dispatch and the card's time for its flush.  The kernel
   service's own calls count as path ``service``, the unfused service's as
   ``service_unfused``;
+* the distributed service (``distributed`` phase): the paper's group over
+  64 tenants (48 SJPC, 8 reservoir, 8 LSH-SS) hashed onto workers, 4,096
+  ``shingle_records`` per tenant per cycle, 6 cycles over a window of 4,
+  one ``all_thresholds`` standing query per tenant polled on the
+  coordinator after each cycle: (a) two in-process workers and a
+  coordinator on the card held against the single-process oracle on the
+  card (replica counters, ``n`` and sample windows bit for bit, every
+  estimate within 1e-6; the cluster's calls count as path
+  ``distributed``, the oracle's as ``distributed_oracle``); (b) 1, 2 and
+  4 worker processes on the card, each held against that oracle, with
+  records/s, merge and freshness-lag quantiles; (c) every bundle (a)
+  exported decodes and encodes to the same bytes, each leaf in the JAX
+  package's dtype;
+* the accuracy cell (``accuracy`` phase, path ``accuracy``): 262,144
+  planted-cluster records (g_4 ~ 18 n), SJPC at s = 4, r = 1 against
+  random sampling at its bytes, the served reservoir and LSH-SS; the
+  errors are printed, only finiteness is gated;
 * the dense serving path (``serve`` phase): qwen2.5-3b at full width and
   depth (36 layers, d_model 2048, GQA 16:2, head_dim 128, vocab 151,936),
   random f32 weights from a seeded ``torch.Generator`` on the card, 4
@@ -90,12 +107,15 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import configs  # noqa: E402
 from repro_torch import estimators as E  # noqa: E402
 from repro_torch.configs.sjpc_paper import PAPER_DEFAULTS  # noqa: E402
-from repro_torch.core import exact, prng, sjpc  # noqa: E402
+from repro_torch.core import baselines, exact, prng, sjpc  # noqa: E402
 from repro_torch.core import projections as proj  # noqa: E402
 from repro_torch.core import sketch as sk  # noqa: E402
 from repro_torch.core.hashing import P31, as_field_tensor  # noqa: E402
 from repro_torch.data.recordize import np_records_from_tokens, records_from_tokens  # noqa: E402
-from repro_torch.data.synthetic import shingle_records  # noqa: E402
+from repro_torch.data.synthetic import planted_cluster_records, shingle_records  # noqa: E402
+from repro_torch.distributed import harness, wire  # noqa: E402
+from repro_torch.distributed.coordinator import Coordinator, LocalWorker  # noqa: E402
+from repro_torch.distributed.transport import OP_EXPORT  # noqa: E402
 from repro_torch.estimators import uncertainty  # noqa: E402
 from repro_torch.kernels import _build, ops, ref, registry  # noqa: E402
 from repro_torch.kernels import fingerprint as kfp  # noqa: E402
@@ -186,6 +206,32 @@ SVC_TWIN_SAMPLE = 2    # tenants per sample kind in the two small twins
 SVC_UNFUSED = 16       # SJPC tenants of dblp/a in the unfused service
 SVC_SPIN_S = 1.0       # the spin ahead of epoch 0's flush (the span gate)
 SVC_PROBE_S = 0.2      # the spin inside the Span.sync probe
+
+# The distributed phase: distributed/harness.py's scale-out workload (the
+# paper's DBLPtitles group over 64 tenants, 48 SJPC, 8 reservoir and 8
+# LSH-SS; 4,096 shingle_records per tenant per cycle, rounds of 512, 6
+# cycles over a 4-epoch window), names salted to balance over 1, 2 and 4
+# workers, one all_thresholds standing query per tenant polled on the
+# coordinator after each cycle.
+DIST_WORKERS = (1, 2, 4)
+# each leaf's dtype in the JAX package's frames (every other leaf: <i4)
+WIRE_DTYPES = {"sjpc": {"counters": "<i4", "n": "<f4", "step": "<i4"},
+               "reservoir": {"items": "<u4"}, "lsh_ss": {"rec_items": "<u4"}}
+
+# The accuracy phase: the paper's Fig. 4/8 regime, uniform noise with
+# planted near-duplicate clusters (g_4 ~ 18 n, g_5 ~ 6 n), SJPC at s = 4,
+# r = 1 against its equal-space competitors.
+ACC_N = 262144
+ACC_D = 6
+ACC_SEED = 17
+ACC_CLUSTERS = ((4, 1024, 3), (5, 768, 2), (6, 384, 1))
+ACC_CFG = dict(d=ACC_D, s=4, ratio=1.0, width=2048, depth=3)
+ACC_BAND = (4, 5)
+ACC_BASE_SEED = 900
+ACC_TRIALS = 5
+ACC_SERVE_BATCH = 2048
+ACC_LSH_TRIALS = 3
+ACC_LSH_PAIRS = 4096
 
 # The serve phase: qwen2.5-3b, 4 prompts of 10,240 tokens (5 x the 2048
 # attention chunk, above the 8192-token threshold of the flash branch; the
@@ -1933,6 +1979,309 @@ def service_numbers(svc_out, smi: str) -> None:
         f"{k} {v:.2f}" for k, v in sorted(stages.items(), key=lambda kv: -kv[1])))
 
 
+# ---------------------------------------------------------------------------
+# the distributed service
+# ---------------------------------------------------------------------------
+
+class RecordingWorker(LocalWorker):
+    """An in-process worker handle that keeps every export payload it
+    returns to the coordinator."""
+
+    def __init__(self):
+        super().__init__()
+        self.exports: list[bytes] = []
+        self._op = None
+
+    def send(self, op: int, body: bytes = b"") -> None:
+        self._op = op
+        super().send(op, body)
+
+    def recv(self) -> bytes:
+        payload = super().recv()
+        if self._op == OP_EXPORT:
+            self.exports.append(payload)
+        return payload
+
+
+def check_frames(workers) -> int:
+    """Every bundle the workers exported: decoded by the port and encoded
+    again, the same bytes; every leaf's dtype the JAX package's.  Returns
+    the number of delta frames checked."""
+    frames = 0
+    for w, handle in enumerate(workers):
+        for cycle, payload in enumerate(handle.exports):
+            msgs = wire.decode_bundle(payload)
+            require(msgs is not wire.HEARTBEAT and len(msgs) == len(handle.runtime.service
+                                                                   .registry.streams()),
+                    f"distributed: worker {w} cycle {cycle} did not export every tenant")
+            again = wire.encode_bundle([wire.encode_delta(m) for m in msgs])
+            require(again == payload,
+                    f"distributed: worker {w} cycle {cycle}: decode + encode changed the bundle")
+            # the bytes re-encode exactly, so each leaf's dtype on the wire is
+            # the one the encoder gives the decoded leaf
+            for m in msgs:
+                want = WIRE_DTYPES.get(m.kind, {})
+                for name in m.state._fields:
+                    dt = wire._leaf_bytes(getattr(m.state, name), name)[0]
+                    require(dt == want.get(name, "<i4"),
+                            f"distributed: {m.kind} leaf {name} is {dt} on the wire, "
+                            f"not {want.get(name, '<i4')}")
+                frames += 1
+    return frames
+
+
+def sync_breakdown(coord, spec, smi: str) -> None:
+    """One more cycle of (a)'s cluster with its sync taken apart, host
+    clock to a synchronise: each worker's flush, its export (deltas and
+    encoding), the coordinator's decode, and the apply of each message
+    into the replica by kind; then the apply of the whole cycle under the
+    profiler (the card's busy share).  Printed, not gated, after the
+    gates; not counted."""
+    names = [st["name"] for st in spec.streams]
+    kinds = {st["name"]: st["estimator"] for st in spec.streams}
+    for uid, name in enumerate(names):
+        coord.ingest(name, harness.scaleout_records(uid, harness.SCALEOUT_CYCLES))
+    stages = dict.fromkeys(("worker flush", "worker export + encode", "decode"), 0.0)
+    apply_ms = {kind: [] for kind in set(kinds.values())}
+    bundles = []
+    for h in coord.workers:
+        runtime = h.runtime
+        seconds, _ = synced_s(runtime.service.flush)
+        stages["worker flush"] += seconds
+        seconds, payload = synced_s(runtime.export)
+        stages["worker export + encode"] += seconds
+        seconds, msgs = synced_s(lambda: wire.decode_bundle(payload))
+        stages["decode"] += seconds
+        bundles.append(msgs)
+    replica = coord.replicas[0]
+
+    def apply(msg):
+        replica.apply_remote_delta(msg.stream, wire.mode_name(msg.mode),
+                                   wire.state_to(msg.state, replica.device))
+
+    for msgs in bundles[:1]:
+        for msg in msgs:
+            seconds, _ = synced_s(lambda: apply(msg))
+            apply_ms[msg.kind].append(seconds * 1e3)
+    seconds, busy, top, _, dtoh = profiled(
+        lambda: [apply(msg) for msgs in bundles[1:] for msg in msgs], host_ops=False)
+    log(f"distributed sync breakdown ({smi}; one more cycle of (a), {len(bundles)} workers, "
+        f"host clock to a synchronise): " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()) + "; apply per message "
+        f"(worker 0's bundle), median ms: " + ", ".join(
+            f"{k} {float(np.median(v)):.3f} ({len(v)} messages, {sum(v):.1f} ms in all)"
+            for k, v in sorted(apply_ms.items()) if v))
+    log_profile(f"distributed apply of worker 1's bundle ({len(bundles[1])} messages, {smi})",
+                seconds, busy, top)
+    log(f"distributed apply: {dtoh} device-to-host copies")
+
+
+def phase_distributed(smi: str) -> dict:
+    """The multi-host service on one card: (a) two in-process workers and
+    a coordinator, held against the single-process oracle on the card;
+    (b) 1, 2 and 4 worker processes on the card over the same records,
+    each held against (a)'s oracle; (c) every bundle (a) exported decoded
+    and encoded again to the same bytes, each leaf in the JAX package's
+    dtype.  Returns the launches of paths ``distributed`` (the cluster of
+    (a), its standing-query polls included) and ``distributed_oracle``."""
+    t_phase = time.perf_counter()
+    tenants, cycles = harness.SCALEOUT_TENANTS, harness.SCALEOUT_CYCLES
+    spec = harness.scaleout_spec()
+    require(spec.groups[0][1] == PAPER_DEFAULTS and "device" not in spec.service,
+            "distributed: the spec is not the paper group on the card")
+    names = [st["name"] for st in spec.streams]
+    kinds = [st["estimator"] for st in spec.streams]
+    n_sjpc = kinds.count("sjpc")
+    batches = harness.scaleout_batches(spec)
+    per_cycle = tenants * harness.SCALEOUT_ROWS
+    log(f"distributed: {tenants} tenants ({n_sjpc} sjpc, {kinds.count('reservoir')} "
+        f"reservoir, {kinds.count('lsh_ss')} lsh_ss, sample kinds with backing_epochs="
+        f"{harness.SCALEOUT_BACKING}), {per_cycle} records a cycle, {cycles} cycles, "
+        f"window {harness.SCALEOUT_WINDOW}, rounds of {harness.SCALEOUT_BATCH_ROWS}; "
+        f"records made in {time.perf_counter() - t_phase:.1f} s")
+
+    # (a) two in-process workers, the coordinator and its replica on the card
+    counted, oracle_counted = PathCounts(), PathCounts()
+    workers = [RecordingWorker() for _ in range(2)]
+    cycle_s, sync_s, poll_s = [], [], []
+    with counted.run():
+        coord = Coordinator(spec, workers)
+        for name in names:
+            coord.register_continuous(svc_mod.ContinuousQuery(f"all/{name}", "all_thresholds",
+                                                              (name,)))
+        for c in range(cycles):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for name in names:
+                coord.ingest(name, batches[name][c])
+            ts = time.perf_counter()
+            stats = coord.sync()
+            cycle_s.append(time.perf_counter() - t0)
+            sync_s.append(time.perf_counter() - ts)
+            require(stats["deltas"] == tenants and stats["heartbeats"] == 0,
+                    f"distributed cycle {c}: {stats}")
+            seconds, out = synced_s(coord.poll)
+            poll_s.append(seconds)
+            require(len(out) == tenants and all(
+                math.isfinite(r.estimate) and r.estimate >= 0 and not r.stale
+                for r in result_cells(out)), f"distributed cycle {c}: poll results")
+            coord.advance_epoch()
+        torch.cuda.synchronize()
+    require(all(h.runtime.service.device.type == "cuda" for h in workers)
+            and coord.replicas[0].device.type == "cuda", "distributed: a service is off the card")
+    calls = cycles * (harness.SCALEOUT_ROWS // harness.SCALEOUT_BATCH_ROWS) * n_sjpc
+    launches = read_counts("distributed", ("fused_ingest", "sample_weights", "fused_query",
+                                           "fused_pairs"), sampling_calls=calls, counts=counted)
+    require(launches["fused_ingest"] == calls,
+            f"distributed: {launches['fused_ingest']} fused_ingest launches, predicted {calls}")
+    with oracle_counted.run():
+        oracle = harness.run_oracle(spec, batches, cycles=cycles)
+        torch.cuda.synchronize()
+    oracle_launches = read_counts("distributed_oracle", ("fused_ingest", "sample_weights"),
+                                  sampling_calls=calls, counts=oracle_counted)
+    require(oracle_launches["fused_ingest"] == calls,
+            f"distributed_oracle: {oracle_launches['fused_ingest']} fused_ingest launches")
+    agree = harness.compare_to_oracle(coord, oracle, spec)
+    require(agree["linear_exact"] and agree["worst_rel_err"] <= 1e-6,
+            f"distributed: the in-process cluster diverged from the oracle: {agree}")
+    m = coord.obs.metrics
+    steady = float(np.median(cycle_s[1:]))
+    log(f"distributed (a) ({smi}): 2 in-process workers match the oracle on the card "
+        f"(linear counters and n, sample windows bit for bit; worst estimate rel err "
+        f"{agree['worst_rel_err']:.3e}); cycle (route + flush + export + merge) "
+        f"{' '.join(f'{x:.3f}' for x in cycle_s)} s, of which sync (flush + export + merge) "
+        f"{' '.join(f'{x:.3f}' for x in sync_s)} s; {per_cycle / steady:.0f} records/s "
+        f"median of cycles 1-{cycles - 1}; poll of {tenants} standing "
+        f"queries p50 {float(np.median(poll_s)) * 1e3:.2f} ms; merge p50/p95 "
+        f"{harness._hist_quantile(m, 'coordinator_merge_seconds', 0.5) * 1e3:.1f}/"
+        f"{harness._hist_quantile(m, 'coordinator_merge_seconds', 0.95) * 1e3:.1f} ms "
+        f"(histogram bucket bounds)")
+
+    # (c) the frames (a) exported
+    frames = check_frames(workers)
+    log(f"distributed (c): {sum(len(h.exports) for h in workers)} bundles, {frames} delta "
+        f"frames decode and encode to the same bytes; leaf dtypes as the JAX package writes "
+        f"them ({WIRE_DTYPES}, every other leaf <i4)")
+    sync_breakdown(coord, spec, smi)
+    coord.close()
+    del coord, workers
+    torch.cuda.empty_cache()
+
+    # (b) worker processes on the card, each run against (a)'s oracle
+    log("distributed (b): the worker processes' kernel launches are not counted (each child "
+        "has its own counts); each run is held against the oracle above")
+    scale = harness.run_scaleout(spec, batches, oracle, DIST_WORKERS, cycles=cycles)
+    for key, row in scale.items():
+        log(f"distributed (b) {key} ({smi}): {row['rec_per_s']:.0f} records/s "
+            f"({row['records']} records in {row['ingest_s']:.3f} s), speedup over 1 worker "
+            f"{row['speedup_vs_1w']:.3f}, merge p50/p95 {row['merge_p50_s'] * 1e3:.1f}/"
+            f"{row['merge_p95_s'] * 1e3:.1f} ms, freshness lag p50/p95 "
+            f"{row['freshness_p50_s'] * 1e3:.1f}/{row['freshness_p95_s'] * 1e3:.1f} ms "
+            f"(histogram bucket bounds); sync (flush + export + merge) per cycle "
+            f"{' '.join(f'{x:.4f}' for x in row['sync_s'])} s; oracle: linear_exact "
+            f"{row['linear_exact']}, worst rel err {row['worst_rel_err']:.3e}")
+    del oracle
+    torch.cuda.empty_cache()
+    log(f"distributed phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "launches_oracle": oracle_launches}
+
+
+# ---------------------------------------------------------------------------
+# the accuracy cell
+# ---------------------------------------------------------------------------
+
+def phase_accuracy(device, smi: str) -> dict[str, int]:
+    """SJPC against its equal-space competitors on the planted-cluster
+    workload: five hash draws of SJPC through ``update_fused`` and
+    ``estimate_batch`` (the first held against its ``impl="torch_ref"``
+    twin on the card), random sampling at the sketch's bytes, the served
+    reservoir beside a served SJPC stream, and LSH-SS.  Only finiteness and
+    non-negativity are gated; the errors are printed.  Returns the
+    launches of path ``accuracy``."""
+    t_phase = time.perf_counter()
+    vals = planted_cluster_records(ACC_N, ACC_D, np.random.default_rng(ACC_SEED),
+                                   list(ACC_CLUSTERS))
+    t0 = time.perf_counter()
+    x_exact = exact.exact_pair_counts(vals)
+    exact_s = time.perf_counter() - t0
+    g_true = {s: float(x_exact[s:].sum() + ACC_N) for s in ACC_BAND}
+    require(all(g > 3 * ACC_N for g in g_true.values()),
+            f"accuracy: not the g_s >> n regime: {g_true}")
+    log(f"accuracy: n = {ACC_N}, d = {ACC_D}, clusters {ACC_CLUSTERS}; exact g_4 = "
+        f"{g_true[4]:.0f} ({g_true[4] / ACC_N:.2f} n), g_5 = {g_true[5]:.0f} "
+        f"({g_true[5] / ACC_N:.2f} n), exact_pair_counts on the host in {exact_s:.1f} s")
+    budget = sjpc.SJPCConfig(**ACC_CFG).counters_bytes
+    sample = baselines.sample_size_for_bytes(budget, ACC_D * 4)
+    counted = PathCounts()
+    ests = {k: {s: [] for s in ACC_BAND}
+            for k in ("sjpc", "random_sampling", "served_sjpc", "served_reservoir", "lsh_ss")}
+    for i in range(ACC_TRIALS):
+        cfg = sjpc.SJPCConfig(**ACC_CFG, seed=ACC_BASE_SEED + i)
+        params, state = sjpc.init(cfg, device=device)
+        key = prng.PRNGKey(40 + i)
+        with counted.run():
+            st = sjpc.update_fused(cfg, params, state, vals, key=key)
+            be = sjpc.estimate_batch(cfg, st.counters[None], st.n[None])
+        if i == 0:
+            with oracle_calls():
+                st_p = sjpc.update_fused(cfg, params, state, vals, key=key, impl="torch_ref")
+                be_p = sjpc.estimate_batch(cfg, st_p.counters[None], st_p.n[None],
+                                           impl="torch_ref")
+            require(equal(st.counters, st_p.counters) and equal(st.n, st_p.n),
+                    "accuracy: SJPC counters differ from the plain twin's")
+            require(np.allclose(be.g, be_p.g, rtol=1e-6, atol=0),
+                    f"accuracy: SJPC g {be.g} differs from the plain twin's {be_p.g}")
+        for s in ACC_BAND:
+            ests["sjpc"][s].append(float(be.g[0, s - cfg.s]))
+        rng = np.random.default_rng(1000 + i)
+        for s in ACC_BAND:
+            ests["random_sampling"][s].append(baselines.random_sampling_g(vals, s, sample, rng))
+    for t in range(ACC_TRIALS):
+        cfg = sjpc.SJPCConfig(**ACC_CFG, seed=ACC_BASE_SEED + 50 + t)
+        svc = svc_mod.EstimationService(svc_mod.ServiceConfig(
+            batch_rows=ACC_SERVE_BATCH, window_epochs=None), obs=private_obs())
+        svc.create_group("g", cfg)
+        svc.create_stream("sjpc", "g")
+        svc.create_stream("res", "g", estimator="reservoir")
+        res_est = svc.registry.stream("res").estimator
+        require(res_est.memory_bytes() <= budget and res_est.cfg.capacity < ACC_N // 8,
+                "accuracy: the served reservoir is not equal-space and sublinear")
+        for nm in ("sjpc", "res"):
+            svc.ingest(nm, vals)
+        with counted.run():
+            snap = svc.snapshot()
+            for nm, k in (("sjpc", "served_sjpc"), ("res", "served_reservoir")):
+                for s in ACC_BAND:
+                    ests[k][s].append(snap.self_join(nm, s).estimate)
+        del svc, snap
+    for t in range(ACC_LSH_TRIALS):
+        rng = np.random.default_rng(4000 + t)
+        for s in ACC_BAND:
+            ests["lsh_ss"][s].append(baselines.lsh_ss_g(vals, s, rng, m_h=ACC_LSH_PAIRS,
+                                                        m_l=ACC_LSH_PAIRS))
+    require(all(math.isfinite(e) and e >= 0 for k in ests.values() for v in k.values()
+                for e in v), "accuracy: an estimate is not finite and non-negative")
+    med = {k: {s: float(np.median([abs(e - g_true[s]) / g_true[s] for e in v[s]]))
+               for s in ACC_BAND} for k, v in ests.items()}
+    calls = ACC_TRIALS + ACC_TRIALS * -(-ACC_N // ACC_SERVE_BATCH)
+    launches = read_counts("accuracy", ("fused_ingest", "sample_weights", "fused_query",
+                                        "fused_pairs"), sampling_calls=calls, counts=counted)
+    log(f"accuracy ({smi}): median relative error of g_s, SJPC at {budget} counter bytes "
+        f"(d={ACC_D}, s={ACC_CFG['s']}, r={ACC_CFG['ratio']}, w={ACC_CFG['width']}, "
+        f"t={ACC_CFG['depth']}), random sampling of {sample} records, the served reservoir "
+        f"of {res_est.cfg.capacity} records, LSH-SS with m_h = m_l = {ACC_LSH_PAIRS}:")
+    for k, per_s in med.items():
+        trials = len(ests[k][ACC_BAND[0]])
+        log(f"  {k:17s} ({trials} draws): " + ", ".join(
+            f"s={s} {per_s[s]:.4f}" for s in ACC_BAND))
+    for k in ("random_sampling", "served_reservoir", "lsh_ss"):
+        ref_k = "served_sjpc" if k == "served_reservoir" else "sjpc"
+        log(f"  {ref_k} beats {k}: " + ", ".join(
+            f"s={s} {med[ref_k][s] < med[k][s]}" for s in ACC_BAND))
+    log(f"accuracy phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
     """Kernel, plain-version and library times at the main path's shapes,
     with the bound of each; ``by_path`` holds each path's launches."""
@@ -2170,6 +2519,11 @@ def main() -> int:
     del svc_out
     torch.cuda.empty_cache()
     log(f"service phase: {time.perf_counter() - t_service:.1f} s")
+    dist_out = phase_distributed(smi)
+    by_path["distributed"] = dist_out["launches"]
+    by_path["distributed_oracle"] = dist_out["launches_oracle"]
+    by_path["accuracy"] = phase_accuracy(device, smi)
+    torch.cuda.empty_cache()
     serve_out = phase_serve(device)
     by_path["serve"] = serve_out["launches"]
     by_path["serve_bf16"] = serve_out["launches_bf16"]

@@ -12,6 +12,8 @@ under different projections never collide by construction.
 
 :func:`subvalue_fingerprints` is the plain PyTorch version; on CUDA tensors
 ``kernels.ops.fingerprint`` runs the hand-written kernel instead.
+:func:`np_subvalue_fingerprints` is the numpy uint64 oracle of both, a copy
+of the JAX package's.
 """
 from __future__ import annotations
 
@@ -48,3 +50,22 @@ def subvalue_fingerprints(values: torch.Tensor, combo_masks: torch.Tensor,
         outs.append(fp)
     return outs[0], outs[1]
 
+
+
+def np_subvalue_fingerprints(values, combo_masks, combo_ids, bases):
+    """NumPy uint64 oracle for the kernel tests: (fp1, fp2), each (B, M)
+    uint32, from uint32 ``values`` (B, d), ``combo_masks`` (M, d),
+    ``combo_ids`` (M,) and ``bases`` (2,)."""
+    p = np.uint64(P31)
+    values = values.astype(np.uint64) % p
+    B, d = values.shape
+    M = combo_ids.shape[0]
+    outs = []
+    for base in bases.astype(np.uint64):
+        fp = np.broadcast_to((combo_ids.astype(np.uint64) % p + 1) % p, (B, M)).copy()
+        for col in range(d):
+            v = (values[:, col:col + 1] + 1) % p
+            nxt = (fp * base + v) % p
+            fp = np.where(combo_masks[None, :, col] != 0, nxt, fp)
+        outs.append(fp.astype(np.uint32))
+    return outs[0], outs[1]

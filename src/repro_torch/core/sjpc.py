@@ -43,6 +43,7 @@ from . import projections as proj
 from . import sketch as sk
 from .fingerprint import make_fingerprint_bases
 from .hashing import as_field_tensor
+from .sketch import median_depth
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,16 +324,6 @@ class SJPCBatchEstimate(NamedTuple):
     n: np.ndarray              # (N,) records; joins: (N, 2) per side
     stderr: np.ndarray         # (N, L) absolute 1-sigma bound (Theorem 2)
     stderr_offline: np.ndarray  # (N, L) sampling-only bound (Theorem 1)
-
-
-def median_depth(moments: torch.Tensor) -> torch.Tensor:
-    """Median over the last axis as ``jnp.median`` takes it: the mean of
-    the two middle values, (lo + hi) * 0.5, for an even count."""
-    t = moments.shape[-1]
-    ordered = torch.sort(moments, dim=-1).values
-    lo = ordered[..., (t - 1) // 2]
-    hi = ordered[..., t // 2]
-    return (lo + hi) * 0.5
 
 
 def estimate_from_moments(cfg: SJPCConfig, moments: torch.Tensor, n: torch.Tensor, *,

@@ -73,6 +73,33 @@ def sketch_update(counters: torch.Tensor, fp1: torch.Tensor, fp2: torch.Tensor,
     return out
 
 
+def median_depth(moments: torch.Tensor) -> torch.Tensor:
+    """Median over the last axis as ``jnp.median`` takes it: the mean of
+    the two middle values, (lo + hi) * 0.5, for an even count."""
+    t = moments.shape[-1]
+    ordered = torch.sort(moments, dim=-1).values
+    lo = ordered[..., (t - 1) // 2]
+    hi = ordered[..., t // 2]
+    return (lo + hi) * 0.5
+
+
+def estimate_f2(counters: torch.Tensor) -> torch.Tensor:
+    """Median-of-rows second-moment estimate in float32 (the median as
+    :func:`median_depth` takes it).  counters: (..., t, w)."""
+    return median_depth(torch.sum(counters.to(torch.float32) ** 2, dim=-1))
+
+
+def estimate_inner(counters_a: torch.Tensor, counters_b: torch.Tensor) -> torch.Tensor:
+    """Median-of-rows inner-product (join size) estimate in float32."""
+    return median_depth(torch.sum(counters_a.to(torch.float32) * counters_b.to(torch.float32),
+                                  dim=-1))
+
+
+def merge(counters_a: torch.Tensor, counters_b: torch.Tensor) -> torch.Tensor:
+    """Sketch linearity: the union of sub-streams is counter addition."""
+    return counters_a + counters_b
+
+
 def np_estimate_f2_exact(counters: np.ndarray) -> np.ndarray:
     """int64-exact F2: median over rows of the row sums of squares."""
     sq = (counters.astype(np.int64) ** 2).sum(axis=-1)

@@ -14,8 +14,8 @@ Importing this package registers the built-in kinds:
 group's SJPCConfig, so all kinds are equal-space by construction.
 """
 from .base import (EstimateTable, Estimator, EstimatorSpec, available, index_state, make,
-                   pairwise_exact_oracle, register, scan_rounds, spec, spec_of, stack_states,
-                   zeros_like_stack)
+                   pairwise_exact_oracle, register, register_spec, register_state_type,
+                   scan_rounds, spec, spec_of, stack_states, state_type, zeros_like_stack)
 from .lsh_ss import LSHSSConfig, LSHSSEstimator, LSHSSState, derive_config
 from .reservoir import ReservoirConfig, ReservoirEstimator, ReservoirState, capacity_for_bytes
 from .sjpc_backend import SJPCEstimator
@@ -24,6 +24,6 @@ __all__ = [
     "EstimateTable", "Estimator", "EstimatorSpec", "LSHSSConfig", "LSHSSEstimator",
     "LSHSSState", "ReservoirConfig", "ReservoirEstimator", "ReservoirState", "SJPCEstimator",
     "available", "capacity_for_bytes", "derive_config", "index_state", "make",
-    "pairwise_exact_oracle", "register", "scan_rounds", "spec", "spec_of", "stack_states",
-    "zeros_like_stack",
+    "pairwise_exact_oracle", "register", "register_spec", "register_state_type",
+    "scan_rounds", "spec", "spec_of", "stack_states", "state_type", "zeros_like_stack",
 ]

@@ -243,36 +243,107 @@ class EstimatorSpec:
 _REGISTRY: dict[str, EstimatorSpec] = {}
 
 
-def _identity(fn):
-    """A callable's identity across module re-import: (module, qualname)."""
+def _callable_id(fn):
+    """A callable's identity across module re-import: (module, qualname).
+    The same source definition executed again (``importlib.reload``)
+    makes a new function object with the same identity."""
     if fn is None:
         return None
     return (getattr(fn, "__module__", None), getattr(fn, "__qualname__", repr(fn)))
 
 
-def _signature(sp: EstimatorSpec):
-    return (sp.kind, _identity(sp.factory), _identity(sp.state_cls), sp.linear,
-            sp.join_capable, sp.stderr_kind, _identity(sp.fusion), _identity(sp.exact_oracle))
+def _cls_id(cls):
+    """A state class's identity: (module, qualname, NamedTuple fields)."""
+    if cls is None:
+        return None
+    return (getattr(cls, "__module__", None), getattr(cls, "__qualname__", cls.__name__),
+            tuple(getattr(cls, "_fields", ())))
+
+
+def _spec_signature(sp: EstimatorSpec):
+    """The comparison key of a re-registration: equal signatures are a
+    no-op, anything else merges or conflicts."""
+    return (sp.kind, _callable_id(sp.factory), _cls_id(sp.state_cls), sp.linear,
+            sp.join_capable, sp.stderr_kind, _callable_id(sp.fusion),
+            _callable_id(sp.exact_oracle))
+
+
+def register_spec(spec: EstimatorSpec) -> EstimatorSpec:
+    """Register (or register again) a kind's spec.
+
+    The same definitions again (a module imported twice or reloaded) are a
+    no-op that adopts the newcomer's objects, so that decoding by kind
+    hands back the class live states carry.  A spec may complete a partial
+    one: a state-class-only spec (the wire codec's channel) merges with a
+    factory registration of the same kind, in either order.  A
+    conflicting registration raises, naming both registrants.
+    """
+    prev = _REGISTRY.get(spec.kind)
+    if prev is None or _spec_signature(prev) == _spec_signature(spec):
+        _REGISTRY[spec.kind] = spec
+        return spec
+    merged = _merge_specs(prev, spec)
+    if merged is None:
+        raise ValueError(f"estimator kind {spec.kind!r} already registered by {prev.registrant} "
+                         f"with a conflicting spec; refused re-registration from "
+                         f"{spec.registrant}")
+    _REGISTRY[spec.kind] = merged
+    return merged
+
+
+def _merge_specs(prev: EstimatorSpec, new: EstimatorSpec):
+    """``prev`` with its ``None`` fields filled from ``new``; ``None`` if a
+    field set on both sides disagrees."""
+    updates = {}
+    for f in ("factory", "state_cls", "linear", "join_capable", "stderr_kind", "fusion",
+              "exact_oracle"):
+        a, b = getattr(prev, f), getattr(new, f)
+        if a is None and b is not None:
+            updates[f] = b
+        elif a is not None and b is not None:
+            ident = _cls_id if f == "state_cls" else (
+                _callable_id if callable(a) else (lambda x: x))
+            if ident(a) != ident(b):
+                return None
+    return dataclasses.replace(prev, **updates) if updates else prev
 
 
 def register(kind: str, factory: Callable, *, state_cls: type | None = None,
              linear: bool | None = None, join_capable: bool | None = None,
              stderr_kind: str | None = None, fusion: Callable | None = None,
              exact_oracle: Callable | None = None) -> EstimatorSpec:
-    """Register an estimator kind.  Registering the same definitions again
-    (a module imported twice or reloaded) is a no-op; a conflicting
-    registration raises, naming both registrants."""
-    new = EstimatorSpec(kind=kind, factory=factory, state_cls=state_cls, linear=linear,
-                        join_capable=join_capable, stderr_kind=stderr_kind,
-                        fusion=fusion, exact_oracle=exact_oracle,
-                        registrant=getattr(factory, "__module__", "?"))
+    """Register an estimator kind through :func:`register_spec`.  The same
+    definitions again are a no-op; a conflicting registration raises,
+    naming both registrants."""
+    return register_spec(EstimatorSpec(
+        kind=kind, factory=factory, state_cls=state_cls, linear=linear,
+        join_capable=join_capable, stderr_kind=stderr_kind, fusion=fusion,
+        exact_oracle=exact_oracle, registrant=getattr(factory, "__module__", "?")))
+
+
+def register_state_type(kind: str, cls: type) -> None:
+    """Register the state NamedTuple class of ``kind`` (the wire codec's
+    decode channel), merged into the kind's spec: the same class again is
+    a no-op, another class raises, naming both registrants."""
     prev = _REGISTRY.get(kind)
-    if prev is not None and _signature(prev) != _signature(new):
-        raise ValueError(f"estimator kind {kind!r} already registered by {prev.registrant} "
-                         f"with a conflicting spec; refused re-registration from "
-                         f"{new.registrant}")
-    _REGISTRY[kind] = new
-    return new
+    if prev is not None and prev.state_cls is not None \
+            and _cls_id(prev.state_cls) != _cls_id(cls):
+        raise ValueError(f"state type for kind {kind!r} already registered as "
+                         f"{prev.state_cls.__name__} (by {prev.registrant}), not "
+                         f"{cls.__name__} (from {getattr(cls, '__module__', '?')})")
+    register_spec(EstimatorSpec(kind=kind, state_cls=cls,
+                                registrant=getattr(cls, "__module__", "?")))
+
+
+def state_type(kind: str) -> type:
+    """The registered state NamedTuple class of ``kind`` (KeyError if
+    none is registered)."""
+    sp = _REGISTRY.get(kind)
+    if sp is None or sp.state_cls is None:
+        raise KeyError(f"no state type registered for estimator kind {kind!r}; "
+                       f"register_state_type() it (a plugin: import its module on the "
+                       f"decoding side too)")
+    return sp.state_cls
 
 
 def spec(kind: str) -> EstimatorSpec:
@@ -300,8 +371,9 @@ def spec_of(est: Estimator) -> EstimatorSpec:
 
 
 def available() -> list[str]:
-    """The registered kinds."""
-    return sorted(_REGISTRY)
+    """The kinds that can be made (a state-type-only registration, the
+    wire's decode channel without a factory, is left out)."""
+    return sorted(k for k, sp in _REGISTRY.items() if sp.factory is not None)
 
 
 def make(kind: str, sjpc_cfg, *, params=None, estimator_cfg=None, opts=None,
@@ -315,8 +387,11 @@ def make(kind: str, sjpc_cfg, *, params=None, estimator_cfg=None, opts=None,
     keywords (``impl``, ``use_fused``, bootstrap sizes).  States live on
     ``device`` (default: the CUDA card).
     """
-    return spec(kind).factory(sjpc_cfg, params=params, estimator_cfg=estimator_cfg,
-                              opts=opts, device=device)
+    sp = _REGISTRY.get(kind)
+    if sp is None or sp.factory is None:
+        raise KeyError(f"unknown estimator kind {kind!r}; available: {available()}")
+    return sp.factory(sjpc_cfg, params=params, estimator_cfg=estimator_cfg, opts=opts,
+                      device=device)
 
 
 def pairwise_exact_oracle(query_kind: str, records):

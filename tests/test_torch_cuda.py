@@ -453,6 +453,32 @@ def test_service_on_the_card_equals_its_plain_twin(cuda, use_fused):
                 np.testing.assert_array_equal(g.per_level, w.per_level)
 
 
+def test_distributed_cluster_on_the_card_equals_its_oracle(cuda):
+    """A 2-worker in-process cluster (workers, coordinator and replicas on
+    the card) against the single-process oracle on the card, at the size
+    of ``tests/test_distributed.py``: replica state bit for bit, every
+    estimate within 1e-6, and an idle sync ships zero-byte heartbeats."""
+    from repro_torch.distributed import harness
+    spec = harness.make_spec(4, kinds=("sjpc", "reservoir"), d=5, s=3, width=128, depth=2,
+                             seed=9, window_epochs=3, batch_rows=64)
+    assert "device" not in spec.service
+    batches = harness.make_batches(spec, cycles=3, rows_per_cycle=96, seed=5)
+    run = harness.run_cluster(spec, batches, n_workers=2, cycles=3, local=True,
+                              keep_open=True)
+    coord = run.coordinator
+    try:
+        assert coord.replicas[0].device.type == "cuda"
+        assert all(h.runtime.service.device.type == "cuda" for h in coord.workers)
+        oracle = harness.run_oracle(spec, batches, cycles=3)
+        agree = harness.compare_to_oracle(coord, oracle, spec)
+        assert agree["linear_exact"] and agree["worst_rel_err"] <= 1e-6, agree
+        assert all(t["deltas"] > 0 for t in run.sync_trace)
+        stats = coord.sync()
+        assert stats["deltas"] == 0 and stats["heartbeats"] == 2
+    finally:
+        coord.close()
+
+
 def test_registry_resolves_cuda_tensors_to_the_kernels(cuda):
     from repro_torch.kernels.registry import kernel_registry
     reg = kernel_registry()

@@ -107,11 +107,25 @@ def test_fingerprints_match_jax_and_numpy(B, d, s):
     for level in jproj.lattice(d, s):
         want = jfp.subvalue_fingerprints(jnp.asarray(values), jnp.asarray(level.masks),
                                          jnp.asarray(level.ids), jnp.asarray(bases))
-        oracle = jfp.np_subvalue_fingerprints(values, level.masks, level.ids, bases)
+        oracle = tfp.np_subvalue_fingerprints(values, level.masks, level.ids, bases)
         got = tfp.subvalue_fingerprints(_t(values), _t(level.masks), _t(level.ids), _t(bases))
         for g, w, o in zip(got, want, oracle):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
             np.testing.assert_array_equal(g.numpy(), o)
+
+
+@pytest.mark.parametrize("B,d,s", [(1, 4, 2), (37, 5, 3), (64, 6, 1)])
+def test_np_subvalue_fingerprints_copy_equals_jax(B, d, s):
+    """The port's numpy oracle is a copy of the JAX package's."""
+    rng = np.random.default_rng(B * 7 + d)
+    values = rng.integers(0, 2**32, size=(B, d), dtype=np.uint32)
+    bases = jfp.make_fingerprint_bases(rng)
+    for level in jproj.lattice(d, s):
+        got = tfp.np_subvalue_fingerprints(values, level.masks, level.ids, bases)
+        want = jfp.np_subvalue_fingerprints(values, level.masks, level.ids, bases)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == np.uint32
+            np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("d,s", [(4, 2), (6, 3), (7, 1)])

@@ -14,11 +14,11 @@ torch = pytest.importorskip("torch")
 
 from kernel_cases import (INGEST_BATCHES, INGEST_DEPTHS, QUERY_DEPTHS, QUERY_SHAPES,
                           counter_stack, fingerprint_case, ingest_inputs, oracle_moments)
-from repro.core.fingerprint import np_subvalue_fingerprints
 from repro.core.hashing import P31, np_cw_hash
 from repro.core.sjpc import SJPCConfig
 from repro.kernels import ops as jops
 from repro_torch.core import projections as proj
+from repro_torch.core.fingerprint import np_subvalue_fingerprints
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import fingerprint as kfp
 from repro_torch.kernels import fused_ingest as kfi
