@@ -60,7 +60,29 @@ w=1024, t=3):
   request monitor over the prompts (``fingerprint`` kernel); then the same
   prompts through a bf16 prefill (``make_prefill`` at its default compute
   dtype), whose attention runs the bf16 kernel
-  (``csrc/flash_attention_tc.cu``).
+  (``csrc/flash_attention_tc.cu``);
+* the other serving families (``serve_families`` phase), each at full
+  width with random f32 weights on the serve phase's prompts and 16 greedy
+  tokens, each against its plain path on the card (tokens, last-token
+  logits and every cache leaf: K/V, mamba conv and SSM states, cross
+  memories): deepseek-moe-16b cut from 28 to 8 layers (path ``serve_moe``;
+  every MoE dispatch's fill within its capacity, the prefill's dropped
+  assignments printed; the plain prefill takes the kernel prefill's expert
+  choices, since top-k routing flips where two experts tie within
+  rounding, and the flips its own top-k would make are printed),
+  mamba2-370m (``serve_ssm``, no kernel; a prefill of 2,047 tokens at
+  chunk 89 and one decode step against a prefill of 2,048 at chunk 128),
+  and seamless-m4t-large-v2 on random frontend frames
+  of 12,288 rows (``serve_encdec``: 72 f32 flash launches, the encoder's
+  and the cross-attention's non-causal; then a bf16 prefill,
+  ``serve_encdec_bf16``, 72 tensor-core launches);
+* the plugin kinds (``plugins`` phase): ``examples/plugins_torch`` loaded
+  through ``load_plugins``, a service of 16 ipf, 16 theta_kmv and 16 SJPC
+  tenants of the paper's group (4,096 records each per epoch, 6 epochs,
+  window 4) against its plain twin bit for bit, ipf joins through the
+  fused planner against the reference join, ipf windows expiring to zero,
+  the accuracy audit, and a 2-worker in-process cluster of plugin tenants
+  against its oracle.
 
 Every result of a kernel path is compared with the same computation
 through the plain versions on the card (``impl="torch_ref"``); LSH-SS,
@@ -87,6 +109,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import io
 import itertools
@@ -128,6 +151,7 @@ from repro_torch.kernels import sketch_moments as ksm  # noqa: E402
 from repro_torch.kernels import sketch_update as ksu  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.config import compute_dims  # noqa: E402
 from repro_torch import service as svc_mod  # noqa: E402
 from repro_torch.obs import Observability, Tracer, metrics  # noqa: E402
@@ -259,6 +283,37 @@ MONITOR = mon.SketchMonitorConfig(d=4, s=4, ratio=1.0, width=1024, depth=3, shar
 # |f32 prefill's|: the kernel's may be at most this many times the plain
 # bf16 path's.
 BF16_PREFILL_RATIO = 1.25
+
+# The serve_families phase: the MoE, SSM and encoder-decoder families at
+# full width, each on the serve phase's prompts (4 x 10,240 tokens, prompt
+# 2 repeating prompt 0) and 16 greedy tokens, random f32 weights from the
+# seed.  deepseek-moe-16b is cut in depth from 28 to 8 layers (the leading
+# dense layer and 7 MoE layers, ~4.6 B parameters): at full depth its 16 B
+# f32 parameters (64 GB) leave no room for the run on one card.
+MOE_ARCH = "deepseek-moe-16b"
+MOE_LAYERS = 8
+SSM_ARCH = "mamba2-370m"
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+FAMILY_SSM_CHUNK = 128          # the chunk of the mamba scan (the JAX prefill's default)
+ENCDEC_SRC = 12288              # frontend frames per request (6 x the attention chunk)
+# The SSM consistency check: a prefill of CHECK_LEN - 1 tokens at a chunk
+# that tiles it (2,047 = 23 x 89), then one decode step, against a prefill
+# of CHECK_LEN tokens at FAMILY_SSM_CHUNK.
+SSM_CHECK_LEN = 2048
+SSM_CHECK_CHUNK = 89
+
+# The plugins phase: the paper's DBLPtitles group serving 16 ipf, 16
+# theta_kmv and 16 SJPC tenants, 4,096 shingle_records per tenant per
+# epoch in rounds of 512, 6 epochs over a window of 4; the plugin kinds
+# come from examples/plugins_torch through load_plugins.
+PLUGIN_MODULE = "examples.plugins_torch"
+PLUGIN_KINDS = ("ipf", "theta_kmv", "sjpc")
+PLUGIN_TENANTS = 16             # per kind
+PLUGIN_GROUP = SVC_GROUPS[0]
+PLUGIN_SEED = 2222
+PLUGIN_CLUSTER_TENANTS = 12     # the in-process cluster's tenants (4 of each kind)
+PLUGIN_CLUSTER_CYCLES = 3
+PLUGIN_CLUSTER_ROWS = 2048
 
 KERNELS = {"fused_ingest": kfi, "sample_weights": ksw, "fingerprint": kfp,
            "fused_query": kfq, "fused_pairs": kpairs, "sketch_update": ksu,
@@ -1248,11 +1303,7 @@ def phase_serve(device) -> dict:
     # every layer's K and V of every prompt position: layer l's come from
     # the attention outputs of layers < l at every query row, which the
     # last-token logits alone do not see
-    kv_rel = []
-    for got, want in zip(tree_leaves(pcache.groups), tree_leaves(ref_cache.groups)):
-        require(got.shape == want.shape, "serve: prefill cache shapes")
-        kv_rel += ((got - want).abs().amax(dim=(1, 2, 3, 4))
-                   / want.abs().amax(dim=(1, 2, 3, 4))).tolist()
+    kv_rel = cache_rel(pcache.groups, ref_cache.groups)
     del pcache, ref_cache
     require(max(kv_rel) <= KV_RTOL, f"serve: prefill K/V differ by {max(kv_rel)} of max |x|")
     log(f"serve: tokens equal the impl=\"torch_ref\" call's; prefill last-token logits within "
@@ -1296,6 +1347,431 @@ def phase_serve(device) -> dict:
         f"{bf16_ref_s * 1e3:.1f} ms")
     return {"prefill_ms": prefill_s * 1e3, "decode_ms": decode_ms, "launches": counts,
             "prefill_bf16_ms": bf16_s * 1e3, "launches_bf16": bf16_counts}
+
+
+def cache_rel(got_tree, want_tree) -> list[float]:
+    """Per layer and leaf of two stacked caches (leading layer axis): max
+    |got - want| over max |want|."""
+    rel = []
+    for got, want in zip(tree_leaves(got_tree), tree_leaves(want_tree)):
+        require(got.shape == want.shape and got.dtype == want.dtype, "cache leaf shapes")
+        dims = tuple(range(1, got.ndim))
+        rel += ((got.float() - want.float()).abs().amax(dim=dims)
+                / want.float().abs().amax(dim=dims).clamp_min(1e-30)).tolist()
+    return rel
+
+
+def decode_steps(decode, params, logits, cache, steps: int):
+    """Greedy decode from a prefill's logits and re-based cache: (tokens
+    (B, steps) int32, host seconds of each step after the first token)."""
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    out, step_s = [tok], []
+    for _ in range(steps - 1):
+        seconds, (step_logits, cache) = synced_s(lambda: decode(params, tok, cache))
+        step_s.append(seconds)
+        tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out.append(tok)
+    return torch.cat(out, dim=1), step_s
+
+
+class DispatchProbe:
+    """Wraps ``models.moe._dispatch_tensors`` inside the block and keeps,
+    per call, the tokens, the capacity, each (group, expert)'s highest fill
+    and the dropped (token, choice) assignments, as device tensors read
+    after the block."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        real = self._real = moe_mod._dispatch_tensors
+
+        def probe(router_probs, top_k, capacity):
+            out = real(router_probs, top_k, capacity)
+            g, s, _ = router_probs.shape
+            dispatch = out[0]
+            self.calls.append((g * s, capacity, dispatch.sum(dim=(1, 3)).amax(),
+                               g * s * top_k - dispatch.sum()))
+            return out
+
+        moe_mod._dispatch_tensors = probe
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._dispatch_tensors = self._real
+
+
+class PinnedRouting:
+    """The kernel prefill's MoE routing, replayed on the plain prefill.
+
+    Top-k routing is discontinuous: where two experts' probabilities lie
+    within the two paths' rounding of each other (about 1e-6), the paths
+    choose differently and that token's output moves by O(1), and with it
+    its K/V in every later layer.  So the plain prefill that holds the
+    kernel prefill's caches takes the kernel prefill's expert choices:
+    ``record()`` keeps the indices of each ``models.moe.ranked_top_k`` call,
+    ``replay()`` hands them back in order, with the plain path's own
+    probabilities as the gates, and counts the tokens whose own top-k
+    would have chosen otherwise."""
+
+    def __init__(self):
+        self.choices, self.replayed, self.flips, self.tokens = [], 0, 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        real = moe_mod.ranked_top_k
+        moe_mod.ranked_top_k = functools.partial(fn, real)
+        try:
+            yield self
+        finally:
+            moe_mod.ranked_top_k = real
+
+    def record(self):
+        def rec(real, x, k):
+            values, idx = real(x, k)
+            self.choices.append(idx)
+            return values, idx
+        return self._patched(rec)
+
+    def replay(self):
+        def rep(real, x, k):
+            idx = self.choices[self.replayed]
+            self.replayed += 1
+            own = real(x, k)[1]
+            self.flips += int((own != idx).any(dim=-1).sum())
+            self.tokens += own.shape[0] * own.shape[1]
+            return torch.gather(x, -1, idx), idx
+        return self._patched(rep)
+
+
+def serve_family(device, cfg, path: str, smi: str, *, flash: int, enc_feats=None,
+                 probe=None, routing=None) -> dict:
+    """One family's serving on the card: ``greedy_generate`` of the serve
+    prompts (the path's run, between a reset and a read of the counts,
+    every prefill attention call expected on the f32 flash kernel:
+    ``flash`` launches), then the same prefill and decode timed step by
+    step, then the plain path on the card (``impl="torch_ref"``): its
+    prefill's last-token logits and every cache leaf of every layer (K/V,
+    mamba conv and SSM states, cross memories) within 1e-4 of max |x|, and
+    its greedy tokens, decoded from its own cache, equal.  Returns the
+    numbers, the parameters and the f32 prefill's logits.  With
+    ``routing`` (a :class:`PinnedRouting`), the plain prefill takes the
+    timed kernel prefill's MoE expert choices."""
+    dims = compute_dims(cfg)
+    record, replay = ((routing.record, routing.replay) if routing is not None
+                      else (contextlib.nullcontext, contextlib.nullcontext))
+    generator = torch.Generator(device=device).manual_seed(SERVE_SEED)
+    init_s, params = synced_s(lambda: M.init_params(generator, cfg, dims, device=device))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"{path}: {cfg.name}, {cfg.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers" if cfg.is_encdec else "")
+        + f", d_model {cfg.d_model}, vocab {cfg.vocab_size}: {n_params} f32 parameters "
+        f"({n_params * 4 / 1e9:.2f} GB) drawn in {init_s:.1f} s")
+    prompts = torch.from_numpy(serve_prompts(cfg.vocab_size)).to(device)
+    B, S, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+
+    reset_counts()
+    with probe if probe is not None else contextlib.nullcontext():
+        gen_s, tokens = synced_s(lambda: serve.greedy_generate(
+            params, cfg, dims, prompts, steps, ssm_chunk=FAMILY_SSM_CHUNK, enc_feats=enc_feats))
+    registry_now = metrics.default_registry()
+    flash_kernel = registry_now.counter("kernel_dispatch_total", kernel="flash_attention",
+                                        impl=registry.CUDA_SM90)
+    flash_plain = registry_now.counter("kernel_dispatch_total", kernel="flash_attention",
+                                       impl=registry.TORCH_REF)
+    counts = read_counts(path, ("flash_attention",) if flash else ())
+    require(flash_kernel == flash and flash_plain == 0 and counts["flash_attention"] == flash
+            and sum(counts.values()) == flash,
+            f"{path}: flash_attention dispatches {flash_kernel} cuda_sm90 / {flash_plain} "
+            f"torch_ref, launches {counts}; expected {flash} / 0 and {flash} f32 flash "
+            f"launches, nothing else")
+    require(tuple(tokens.shape) == (B, steps) and tokens.dtype == torch.int32, f"{path}: tokens")
+    require(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), f"{path}: token ids")
+    require(torch.equal(tokens[0], tokens[2]), f"{path}: duplicate prompts generated differently")
+
+    prefill = serve.make_prefill(cfg, dims, compute_dtype=torch.float32,
+                                 ssm_chunk=FAMILY_SSM_CHUNK)
+    decode = serve.make_decode_step(cfg, dims, compute_dtype=torch.float32)
+    src = 0 if enc_feats is None else enc_feats.shape[1]
+
+    def rebased(pcache):
+        return serve._rebase_cache(M.init_cache(cfg, dims, B, S + steps, src,
+                                                dtype=torch.float32, device=device), pcache, S)
+
+    torch.cuda.reset_peak_memory_stats(device)
+    with record():
+        prefill_s, (logits, pcache) = synced_s(lambda: prefill(params, prompts, enc_feats))
+    stepwise, step_s = decode_steps(decode, params, logits, rebased(pcache), steps)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    require(torch.equal(stepwise, tokens), f"{path}: stepwise tokens != greedy_generate")
+    require(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (B, 1, dims.vocab),
+            f"{path}: prefill logits")
+    decode_ms = float(np.median(step_s)) * 1e3
+
+    with oracle_calls(), replay():
+        ref_prefill_s, (ref_logits, ref_cache) = synced_s(
+            lambda: M.prefill(params, cfg, dims, prompts, enc_feats=enc_feats,
+                              compute_dtype=torch.float32, ssm_chunk=FAMILY_SSM_CHUNK,
+                              impl="torch_ref"))
+    if routing is not None:
+        require(routing.replayed == len(routing.choices) > 0,
+                f"{path}: {routing.replayed} of {len(routing.choices)} recorded routings replayed")
+    rel = float((logits - ref_logits).abs().max() / ref_logits.abs().max())
+    require(rel <= LOGITS_RTOL, f"{path}: prefill logits differ by {rel} of max |logit|")
+    kv_rel = cache_rel(pcache.groups, ref_cache.groups)
+    require(max(kv_rel) <= KV_RTOL, f"{path}: prefill cache differs by {max(kv_rel)} of max |x|")
+    del pcache
+    ref_tokens, _ = decode_steps(decode, params, ref_logits, rebased(ref_cache), steps)
+    del ref_cache, ref_logits
+    require(torch.equal(ref_tokens, tokens), f"{path}: tokens != the torch_ref path's")
+    log(f"{path}: greedy_generate of {B} x {S} prompt tokens + {steps} tokens in {gen_s:.3f} s; "
+        f"{counts['flash_attention']} flash_attention launches, all {registry.CUDA_SM90}; "
+        f"tokens row 0 {tokens[0].tolist()}; the plain path's tokens equal, its last-token "
+        f"logits within {rel:.3g} of max |logit| and its {len(kv_rel)} per-layer cache leaves "
+        f"within {max(kv_rel):.3g} of max |x| (limits {LOGITS_RTOL}, {KV_RTOL}); plain "
+        f"prefill {ref_prefill_s * 1e3:.1f} ms")
+    log(f"{path}: prefill {prefill_s * 1e3:.1f} ms ({B * S / prefill_s:.0f} prompt tokens/s), "
+        f"decode {decode_ms:.3f} ms per step, median of {len(step_s)} "
+        f"({B / (decode_ms / 1e3):.1f} tokens/s); host clock around synchronised work; peak "
+        f"device memory {peak_gb:.1f} GB; {smi}")
+    return {"launches": counts, "prefill_ms": prefill_s * 1e3, "decode_ms": decode_ms,
+            "params": params, "dims": dims, "logits": logits, "prompts": prompts}
+
+
+def phase_serve_families(device, smi: str) -> dict:
+    """The MoE, SSM and encoder-decoder serving paths at full width, one
+    model at a time, each freed before the next is drawn:
+    deepseek-moe-16b cut to 8 layers (path ``serve_moe``, with every MoE
+    dispatch's fill held to its capacity), mamba2-370m (``serve_ssm``, and
+    the prefill -> decode consistency of the scan), seamless-m4t-large-v2
+    on random frontend frames (``serve_encdec``, then a bf16 prefill,
+    ``serve_encdec_bf16``).  Returns each path's launch counts and the
+    models' times."""
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are enabled")
+    out = {}
+
+    full = configs.get(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    n_moe = MOE_LAYERS - cfg.leading_dense_layers
+    log(f"serve_moe: {MOE_ARCH} cut from {full.num_layers} to {MOE_LAYERS} layers "
+        f"({cfg.leading_dense_layers} dense + {n_moe} MoE); every width as published")
+    probe, routing = DispatchProbe(), PinnedRouting()
+    res = serve_family(device, cfg, "serve_moe", smi, flash=MOE_LAYERS, probe=probe,
+                       routing=routing)
+    log(f"serve_moe: the plain prefill took the kernel prefill's expert choices; its own "
+        f"top-k would have routed {routing.flips} of {routing.tokens} (token, layer) pairs "
+        f"otherwise")
+    require(len(probe.calls) == n_moe * SERVE_STEPS,
+            f"serve_moe: {len(probe.calls)} MoE dispatches, expected {n_moe * SERVE_STEPS}")
+    fills = [(tokens, cap, int(top), int(drop)) for tokens, cap, top, drop in probe.calls]
+    require(all(top <= cap for _, cap, top, _ in fills),
+            f"serve_moe: an expert's fill exceeds its capacity: {fills}")
+    prefill_calls = [f for f in fills if f[0] == SERVE_BATCH * SERVE_PROMPT]
+    decode_calls = [f for f in fills if f[0] == SERVE_BATCH]
+    require(len(prefill_calls) == n_moe and len(decode_calls) == n_moe * (SERVE_STEPS - 1),
+            f"serve_moe: dispatches by tokens {[f[0] for f in fills]}")
+    dropped = sum(f[3] for f in prefill_calls)
+    log(f"serve_moe: prefill capacity {prefill_calls[0][1]} per expert and group of "
+        f"{moe_mod.GROUP} tokens (capacity factor {cfg.capacity_factor}), highest fill "
+        f"{max(f[2] for f in prefill_calls)}; the prefill dropped {dropped} of "
+        f"{n_moe * SERVE_BATCH * SERVE_PROMPT * cfg.num_experts_per_tok} (token, choice) "
+        f"assignments ({[f[3] for f in prefill_calls]} by MoE layer); the decode steps "
+        f"(groups of {SERVE_BATCH} tokens, capacity {decode_calls[0][1]}) dropped "
+        f"{sum(f[3] for f in decode_calls)}")
+    out["serve_moe"] = {key: res[key] for key in ("launches", "prefill_ms", "decode_ms")}
+    out["serve_moe"]["dropped"] = dropped
+    del res, probe, routing
+    torch.cuda.empty_cache()
+
+    cfg = configs.get(SSM_ARCH)
+    res = serve_family(device, cfg, "serve_ssm", smi, flash=0)
+    params, dims, prompts = res["params"], res["dims"], res["prompts"]
+    out["serve_ssm"] = {key: res[key] for key in ("launches", "prefill_ms", "decode_ms")}
+    del res
+    # the chunked scan against the recurrent step, and one chunk against another
+    _, pcache = M.prefill(params, cfg, dims, prompts[:, :SSM_CHECK_LEN - 1],
+                          compute_dtype=torch.float32, ssm_chunk=SSM_CHECK_CHUNK)
+    cache = serve._rebase_cache(M.init_cache(cfg, dims, SERVE_BATCH, SSM_CHECK_LEN,
+                                             dtype=torch.float32, device=device),
+                                pcache, SSM_CHECK_LEN - 1)
+    step_logits, _ = M.decode_step(params, cfg, dims,
+                                   prompts[:, SSM_CHECK_LEN - 1:SSM_CHECK_LEN], cache,
+                                   compute_dtype=torch.float32)
+    full_logits, _ = M.prefill(params, cfg, dims, prompts[:, :SSM_CHECK_LEN],
+                               compute_dtype=torch.float32, ssm_chunk=FAMILY_SSM_CHUNK)
+    rel = float((step_logits - full_logits).abs().max() / full_logits.abs().max())
+    require(rel <= LOGITS_RTOL,
+            f"serve_ssm: prefill {SSM_CHECK_LEN - 1} (chunk {SSM_CHECK_CHUNK}) + a decode step "
+            f"differs from prefill {SSM_CHECK_LEN} (chunk {FAMILY_SSM_CHUNK}) by {rel}")
+    log(f"serve_ssm: prefill of {SSM_CHECK_LEN - 1} tokens at chunk {SSM_CHECK_CHUNK} then one "
+        f"decode step equals the last logits of a prefill of {SSM_CHECK_LEN} at chunk "
+        f"{FAMILY_SSM_CHUNK} within {rel:.3g} of max |logit| (limit {LOGITS_RTOL})")
+    del params, pcache, cache
+    torch.cuda.empty_cache()
+
+    cfg = configs.get(ENCDEC_ARCH)
+    gen = torch.Generator(device=device).manual_seed(SERVE_SEED + 7)
+    frames = torch.randn((SERVE_BATCH, ENCDEC_SRC, cfg.d_model), generator=gen, device=device)
+    frames[2] = frames[0]                       # the duplicate request carries the same frames
+    layers = cfg.encoder_layers + 2 * cfg.num_layers
+    res = serve_family(device, cfg, "serve_encdec", smi, flash=layers, enc_feats=frames)
+    params, dims, prompts, logits = res["params"], res["dims"], res["prompts"], res["logits"]
+    out["serve_encdec"] = {key: res[key] for key in ("launches", "prefill_ms", "decode_ms")}
+    del res
+    # the bf16 prefill: the tensor-core kernel's path, then the plain path
+    reset_counts()
+    bf16_s, (bf16_logits, bf16_cache) = synced_s(lambda: serve.make_prefill(cfg, dims)(
+        params, prompts, frames))
+    del bf16_cache
+    bf16_counts = read_counts("serve_encdec_bf16", ("flash_attention_tc",))
+    require(bf16_counts["flash_attention_tc"] == layers
+            and sum(bf16_counts.values()) == layers,
+            f"serve_encdec_bf16: launches {bf16_counts}; expected {layers} tensor-core "
+            f"flash_attention launches and nothing else")
+    with oracle_calls():
+        bf16_ref_s, (bf16_ref_logits, bf16_ref_cache) = synced_s(
+            lambda: serve.make_prefill(cfg, dims, impl="torch_ref")(params, prompts, frames))
+    del bf16_ref_cache
+    require(all(bool(torch.isfinite(x).all()) and x.shape == logits.shape
+                for x in (bf16_logits, bf16_ref_logits)), "serve_encdec_bf16: prefill logits")
+    top = logits.abs().max()
+    e_k = float((bf16_logits - logits).abs().max() / top)
+    e_p = float((bf16_ref_logits - logits).abs().max() / top)
+    require(e_k <= BF16_PREFILL_RATIO * e_p,
+            f"serve_encdec_bf16: kernel prefill's logits {e_k} of max |logit| from the f32 "
+            f"prefill's, more than {BF16_PREFILL_RATIO} x the plain bf16 path's {e_p}")
+    log(f"serve_encdec_bf16: prefill {bf16_s * 1e3:.1f} ms (host clock), "
+        f"{bf16_counts['flash_attention_tc']} tensor-core flash_attention launches; last-token "
+        f"logits against the f32 prefill's, max |d| / max |logit|: kernel e_k {e_k:.4g}, plain "
+        f"bf16 path e_p {e_p:.4g} (gate e_k <= {BF16_PREFILL_RATIO} e_p); plain bf16 prefill "
+        f"{bf16_ref_s * 1e3:.1f} ms; {smi}")
+    out["serve_encdec_bf16"] = {"launches": bf16_counts, "prefill_ms": bf16_s * 1e3}
+    del params, frames, logits, bf16_logits, bf16_ref_logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def plugin_tenants():
+    """(name, group, kind, uid, index): 16 tenants of each kind, uids dense
+    in this order, pinned in both services of the phase."""
+    tenants = [(f"{kind}{i:02d}", PLUGIN_GROUP, kind, i)
+               for kind in PLUGIN_KINDS for i in range(PLUGIN_TENANTS)]
+    return [(name, group, kind, uid, i) for uid, (name, group, kind, i) in enumerate(tenants)]
+
+
+def phase_plugins() -> dict:
+    """Plugin estimator kinds (``examples/plugins_torch``, loaded through
+    ``load_plugins``) served on the card beside SJPC tenants: the service
+    against its plain twin (``impl="torch_ref"``) bit for bit at every
+    epoch, ipf joins through the fused planner against the per-stream
+    reference join, ipf windows expiring to the zero state, the accuracy
+    audit (ipf audited, theta_kmv skipped for want of an oracle), and a
+    2-worker in-process cluster of plugin tenants against its oracle.  The
+    kernel service's own calls count as path ``plugins``."""
+    t_phase = time.perf_counter()
+    require(E.load_plugins([PLUGIN_MODULE]) == [PLUGIN_MODULE], "plugins: load_plugins")
+    require({"ipf", "theta_kmv"} <= set(E.available()), "plugins: kinds not registered")
+    tenants = plugin_tenants()
+    ipf = [t[0] for t in tenants if t[2] == "ipf"]
+    joins = [(f"join/{ipf[i]}", "join", (ipf[i], ipf[i + 1]), 3 + i // 2 % 4)
+             for i in range(0, len(ipf), 2)]
+    queries = [(f"all/{name}", "all_thresholds", (name,), None) for name, *_ in tenants] + joins
+    main = make_service(tenants, queries, obs=private_obs())
+    plain = make_service(tenants, queries, obs=private_obs(), impl="torch_ref")
+    require(main.device.type == "cuda" and main.cfg.impl is None, "plugins: service device")
+    counted = PathCounts()
+    flush_s = []
+    for epoch in range(SVC_EPOCHS):
+        recs = {name: shingle_records(SVC_ROWS, d=6, seed=(PLUGIN_SEED, uid, epoch), group=6,
+                                      dup_profile=QUICKSTART_DUPS)
+                for name, _, _, uid, _ in tenants}
+        with counted.run():
+            for name, *_ in tenants:
+                main.ingest(name, recs[name])
+            seconds, _ = synced_s(main.flush)
+            main.advance_epoch()
+            out = main.poll()
+            torch.cuda.synchronize()
+        flush_s.append(seconds)
+        with oracle_calls():
+            for name, *_ in tenants:
+                plain.ingest(name, recs[name])
+            plain.flush()
+            plain.advance_epoch()
+            plain_out = plain.poll()
+        for name, *_ in tenants:
+            require(same_state(main.registry.stream(name).window.total,
+                               plain.registry.stream(name).window.total),
+                    f"plugins epoch {epoch}: {name} window != the plain twin's")
+        require(same_results(out, plain_out, plain_out),
+                f"plugins epoch {epoch}: results != the plain twin's")
+    calls = SVC_EPOCHS * (SVC_ROWS // SVC_BATCH_ROWS) * PLUGIN_TENANTS
+    launches = read_counts("plugins", ("fused_ingest", "sample_weights", "fused_query"),
+                           sampling_calls=calls, counts=counted)
+    require(launches["fused_ingest"] == calls,
+            f"plugins: {launches['fused_ingest']} fused_ingest launches for {calls} SJPC "
+            f"update calls")
+    # ipf joins through the fused planner against the per-stream reference
+    for name, _, (a, b), s in joins:
+        wa, wb = (main.registry.stream(x).window for x in (a, b))
+        ref_table = wa.estimator.estimate_join_ref(wa.window_state(), wb.window_state())
+        li = s - PAPER_DEFAULTS.s
+        require(np.array_equal(out[name].per_level, ref_table.x[0, li:])
+                and out[name].estimate == float(ref_table.g[0, li]),
+                f"plugins: {name} fused join {out[name].estimate} != the reference join "
+                f"{float(ref_table.g[0, li])}")
+    # every ipf window expires by subtraction to the literal zero state
+    for _ in range(SVC_WINDOW):
+        main.advance_epoch()
+    for name in ipf:
+        total = main.registry.stream(name).window.total
+        require(int(total.n) == 0 and not bool(total.counters.any()),
+                f"plugins: {name} window did not expire to zero")
+    log(f"plugins: {len(tenants)} tenants ({PLUGIN_TENANTS} each of {', '.join(PLUGIN_KINDS)}), "
+        f"{len(queries)} standing queries; windows and results equal the plain twin's bit for "
+        f"bit at all {SVC_EPOCHS} epochs; {len(joins)} ipf joins through the fused planner equal "
+        f"the per-stream reference join; every ipf window expired to zero after {SVC_WINDOW} "
+        f"idle epochs; flush s {[round(x, 3) for x in flush_s]} (host clock)")
+    del main, plain
+    # the accuracy audit: ipf has the pairwise oracle, theta_kmv none
+    svc = svc_mod.EstimationService(svc_mod.ServiceConfig(
+        batch_rows=SVC_BATCH_ROWS, window_epochs=SVC_WINDOW, audit_rate=1.0), obs=private_obs())
+    svc.create_group(PLUGIN_GROUP, PAPER_DEFAULTS)
+    for i, kind in enumerate(("ipf", "theta_kmv")):
+        svc.create_stream(kind, PLUGIN_GROUP, estimator=kind)
+        svc.register_continuous(svc_mod.ContinuousQuery(f"q/{kind}", "self_join", (kind,)))
+        svc.ingest(kind, shingle_records(SVC_BATCH_ROWS, d=6, seed=(PLUGIN_SEED, i), group=6,
+                                         dup_profile=QUICKSTART_DUPS))
+    svc.poll()
+    m = svc.obs.metrics
+    audited = m.counter("accuracy_audits_total", kind="ipf")
+    skipped = m.counter("accuracy_audit_skipped_total", reason="no_exact_oracle")
+    require(audited == 1.0 and skipped >= 1.0
+            and m.counter("accuracy_audits_total", kind="theta_kmv") == 0.0,
+            f"plugins: audits of ipf {audited}, no_exact_oracle skips {skipped}")
+    del svc
+    # an in-process cluster of plugin tenants against its single-process oracle
+    cfg = PAPER_DEFAULTS
+    spec = harness.make_spec(PLUGIN_CLUSTER_TENANTS, kinds=PLUGIN_KINDS, d=cfg.d, s=cfg.s,
+                             width=cfg.width, depth=cfg.depth, seed=PLUGIN_SEED,
+                             window_epochs=SVC_WINDOW, batch_rows=SVC_BATCH_ROWS)
+    batches = harness.make_batches(spec, cycles=PLUGIN_CLUSTER_CYCLES,
+                                   rows_per_cycle=PLUGIN_CLUSTER_ROWS, seed=PLUGIN_SEED)
+    run = harness.run_cluster(spec, batches, n_workers=2, cycles=PLUGIN_CLUSTER_CYCLES,
+                              local=True, keep_open=True)
+    try:
+        oracle = harness.run_oracle(spec, batches, cycles=PLUGIN_CLUSTER_CYCLES)
+        agree = harness.compare_to_oracle(run.coordinator, oracle, spec)
+    finally:
+        run.coordinator.close()
+    require(agree["linear_exact"] and agree["worst_rel_err"] <= 1e-6,
+            f"plugins: the cluster differs from its oracle: {agree}")
+    log(f"plugins: the accuracy audit ran on ipf ({audited:.0f}) and skipped theta_kmv "
+        f"(no_exact_oracle, {skipped:.0f}); a 2-worker in-process cluster of "
+        f"{PLUGIN_CLUSTER_TENANTS} tenants ({', '.join(PLUGIN_KINDS)}) equals its oracle over "
+        f"{PLUGIN_CLUSTER_CYCLES} cycles (linear states bit for bit, worst rel err "
+        f"{agree['worst_rel_err']:.3g}); phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
 
 
 def flash_rows(device, by_path, flush) -> list[dict]:
@@ -2527,6 +3003,13 @@ def main() -> int:
     serve_out = phase_serve(device)
     by_path["serve"] = serve_out["launches"]
     by_path["serve_bf16"] = serve_out["launches_bf16"]
+    torch.cuda.empty_cache()
+    t_families = time.perf_counter()
+    families = phase_serve_families(device, smi)
+    for path, res in families.items():
+        by_path[path] = res["launches"]
+    log(f"serve_families phase: {time.perf_counter() - t_families:.1f} s")
+    by_path["plugins"] = phase_plugins()["launches"]
 
     rows = phase_numbers(device, cfg, params, records, tenants, by_path, est_out)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,23 +1,80 @@
 """Configurations the port supports: the SJPC paper defaults
-(``sjpc_paper``) and the architectures of the LM stack.
+(``sjpc_paper``) and the ten architectures of the LM stack (public-literature
+specs, verbatim, as in the JAX package's ``configs/``), with the input-shape
+pool.
 
 ``get(name)`` returns the full ``ArchConfig``; ``reduced(name)`` a
 CPU-test-sized config of the same family (same layer pattern, MoE
 structure, GQA ratio -- tiny dims), field for field the JAX package's.
-The registry holds the dense architecture the port serves; the MoE, SSM
-and encoder-decoder ones come with their slices (ROADMAP queue 1).
 """
 from __future__ import annotations
 
+import dataclasses
+
 from repro_torch.models.config import ArchConfig
 
+from .chameleon_34b import CONFIG as chameleon_34b
+from .dbrx_132b import CONFIG as dbrx_132b
+from .deepseek_coder_33b import CONFIG as deepseek_coder_33b
+from .deepseek_moe_16b import CONFIG as deepseek_moe_16b
+from .internlm2_20b import CONFIG as internlm2_20b
+from .jamba_1_5_large_398b import CONFIG as jamba_1_5_large_398b
+from .mamba2_370m import CONFIG as mamba2_370m
 from .qwen2_5_3b import CONFIG as qwen2_5_3b
+from .qwen2_7b import CONFIG as qwen2_7b
+from .seamless_m4t_large_v2 import CONFIG as seamless_m4t_large_v2
 
-REGISTRY: dict[str, ArchConfig] = {c.name: c for c in [qwen2_5_3b]}
+REGISTRY: dict[str, ArchConfig] = {
+    c.name: c for c in [
+        jamba_1_5_large_398b, dbrx_132b, deepseek_moe_16b,
+        seamless_m4t_large_v2, internlm2_20b, deepseek_coder_33b,
+        qwen2_7b, qwen2_5_3b, chameleon_34b, mamba2_370m,
+    ]
+}
+
+ARCH_NAMES = list(REGISTRY)
 
 
 def get(name: str) -> ArchConfig:
     return REGISTRY[name]
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned pool): every cell = (arch x shape)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str          # train | prefill | decode
+    seq: int           # sequence length (cache length for decode)
+    batch: int         # global batch
+
+
+SHAPES = {
+    "train_4k":    ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k":  ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k":   ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+
+def applicable(cfg: ArchConfig, shape: str) -> bool:
+    """long_500k needs a sub-quadratic path (SSM/hybrid only)."""
+    if shape == "long_500k":
+        return cfg.supports_long_context()
+    return True
+
+
+def cells(arch_names=None) -> list[tuple[str, str]]:
+    """All runnable (arch, shape) cells."""
+    names = arch_names or ARCH_NAMES
+    out = []
+    for a in names:
+        for s in SHAPES:
+            if applicable(REGISTRY[a], s):
+                out.append((a, s))
+    return out
 
 
 # ---------------------------------------------------------------------------

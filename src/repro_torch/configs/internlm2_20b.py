@@ -1,0 +1,15 @@
+"""InternLM2-20B.  [arXiv:2403.17297; hf] -- dense, GQA kv=8."""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="internlm2-20b",
+    family="dense",
+    num_layers=48,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=16384,
+    vocab_size=92544,
+    head_dim=128,
+    rope_theta=1_000_000.0,
+)

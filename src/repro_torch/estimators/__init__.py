@@ -10,12 +10,16 @@ Importing this package registers the built-in kinds:
   "lsh_ss"     one-pass stratified LSH sampling (§2.3): bucket-count
                sketch + online pair reservoirs (lsh_ss.py)
 
+Plugin kinds register from outside the package (``examples/plugins_torch``);
+``load_plugins()`` imports the modules ``REPRO_PLUGINS`` names.
+
 ``make(kind, sjpc_cfg)`` derives each competitor's configuration from the
 group's SJPCConfig, so all kinds are equal-space by construction.
 """
-from .base import (EstimateTable, Estimator, EstimatorSpec, available, index_state, make,
-                   pairwise_exact_oracle, register, register_spec, register_state_type,
-                   scan_rounds, spec, spec_of, stack_states, state_type, zeros_like_stack)
+from .base import (EstimateTable, Estimator, EstimatorSpec, available, index_state,
+                   load_plugins, make, pairwise_exact_oracle, register, register_spec,
+                   register_state_type, scan_rounds, spec, spec_of, stack_states, state_type,
+                   zeros_like_stack)
 from .lsh_ss import LSHSSConfig, LSHSSEstimator, LSHSSState, derive_config
 from .reservoir import ReservoirConfig, ReservoirEstimator, ReservoirState, capacity_for_bytes
 from .sjpc_backend import SJPCEstimator
@@ -23,7 +27,7 @@ from .sjpc_backend import SJPCEstimator
 __all__ = [
     "EstimateTable", "Estimator", "EstimatorSpec", "LSHSSConfig", "LSHSSEstimator",
     "LSHSSState", "ReservoirConfig", "ReservoirEstimator", "ReservoirState", "SJPCEstimator",
-    "available", "capacity_for_bytes", "derive_config", "index_state", "make",
+    "available", "capacity_for_bytes", "derive_config", "index_state", "load_plugins", "make",
     "pairwise_exact_oracle", "register", "register_spec", "register_state_type",
     "scan_rounds", "spec", "spec_of", "stack_states", "state_type", "zeros_like_stack",
 ]

@@ -394,6 +394,28 @@ def make(kind: str, sjpc_cfg, *, params=None, estimator_cfg=None, opts=None,
                       device=device)
 
 
+def load_plugins(modules=None) -> list[str]:
+    """Import plugin modules for their registration side effect.
+
+    ``modules`` is an iterable of module names; by default the
+    ``REPRO_PLUGINS`` environment variable (comma-separated), so that a
+    service picks up plugin kinds without code changes.  The names are the
+    port's plugin modules (``examples.plugins_torch``).  Importing a module
+    already imported is a no-op, and so is registering an identical spec
+    again, so this is safe to call repeatedly.  Returns the names loaded.
+    """
+    import importlib
+    import os
+    if modules is None:
+        raw = os.environ.get("REPRO_PLUGINS", "")
+        modules = [m for m in (p.strip() for p in raw.split(",")) if m]
+    loaded = []
+    for name in modules:
+        importlib.import_module(name)
+        loaded.append(name)
+    return loaded
+
+
 def pairwise_exact_oracle(query_kind: str, records):
     """The exact g replay shared by the kinds that estimate the paper's
     pairwise-similarity counts: given the record batches of a query's

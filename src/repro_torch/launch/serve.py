@@ -13,10 +13,11 @@ from ..models import model as M
 from ..models.config import ArchConfig, Dims
 
 
-def make_prefill(cfg: ArchConfig, dims: Dims, *, attn_chunk: int = 2048,
+def make_prefill(cfg: ArchConfig, dims: Dims, *, ssm_chunk: int = 128, attn_chunk: int = 2048,
                  compute_dtype=torch.bfloat16, impl: str | None = None):
-    def prefill_fn(params, tokens):
-        return M.prefill(params, cfg, dims, tokens, compute_dtype=compute_dtype,
+    def prefill_fn(params, tokens, enc_feats=None):
+        return M.prefill(params, cfg, dims, tokens, enc_feats=enc_feats,
+                         compute_dtype=compute_dtype, ssm_chunk=ssm_chunk,
                          attn_chunk=attn_chunk, impl=impl)
     return prefill_fn
 
@@ -29,17 +30,19 @@ def make_decode_step(cfg: ArchConfig, dims: Dims, *, compute_dtype=torch.bfloat1
 
 def greedy_generate(params, cfg: ArchConfig, dims: Dims, prompt, steps: int, *,
                     max_len: int | None = None, compute_dtype=torch.float32,
-                    impl: str | None = None):
+                    ssm_chunk: int = 8, enc_feats=None, impl: str | None = None):
     """Prefill the prompt (B, S) into a padded cache, then greedy-decode
-    ``steps`` tokens.  Returns (B, steps) int32 tokens.  ``impl`` names the
+    ``steps`` tokens.  Returns (B, steps) int32 tokens.  ``enc_feats``
+    (B, S_src, d) feed an encoder-decoder's encoder; ``impl`` names the
     prefill's flash-attention implementation (None: by device)."""
     device = params["embed"].device
     prompt = torch.as_tensor(prompt, device=device)
     b, s = prompt.shape
     max_len = max_len or (s + steps)
-    logits, pcache = M.prefill(params, cfg, dims, prompt, compute_dtype=compute_dtype,
-                               impl=impl)
-    cache = _rebase_cache(M.init_cache(cfg, dims, b, max_len, dtype=compute_dtype,
+    src_len = enc_feats.shape[1] if enc_feats is not None else 0
+    logits, pcache = M.prefill(params, cfg, dims, prompt, enc_feats=enc_feats,
+                               compute_dtype=compute_dtype, ssm_chunk=ssm_chunk, impl=impl)
+    cache = _rebase_cache(M.init_cache(cfg, dims, b, max_len, src_len, dtype=compute_dtype,
                                        device=device), pcache, s)
     del pcache
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
@@ -54,9 +57,19 @@ def greedy_generate(params, cfg: ArchConfig, dims: Dims, prompt, steps: int, *,
 
 def _rebase_cache(empty: M.Cache, pcache: M.Cache, prompt_len: int) -> M.Cache:
     """Copy the prefill's K/V (length S) into the front of the max_len
-    decode cache, in place."""
-    for egroup, pgroup in zip(empty.groups, pcache.groups):
-        for ecache, pc in zip(egroup, pgroup):
-            for name in ("k", "v"):                   # (layers, B, S, KV, hd)
-                ecache[name][:, :, :prompt_len] = pc[name].to(ecache[name].dtype)
-    return M.Cache(groups=empty.groups, lens=pcache.lens)
+    decode cache, in place; carry the mamba states and the cross memories
+    through, cast to the empty cache's dtype where the shapes match (a
+    leaf of another shape is taken as the prefill made it)."""
+    def merge(e, p, name=None):
+        if isinstance(e, dict):
+            return {key: merge(e[key], p[key], key) for key in e}
+        if isinstance(e, (list, tuple)):
+            return type(e)(merge(a, b, name) for a, b in zip(e, p))
+        if name in ("k", "v"):                          # (layers, B, S, KV, hd)
+            e[:, :, :prompt_len] = p.to(e.dtype)
+            return e
+        if e.shape == p.shape:
+            return e.copy_(p)
+        return p
+
+    return M.Cache(groups=merge(empty.groups, pcache.groups), lens=pcache.lens)

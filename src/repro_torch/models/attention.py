@@ -10,8 +10,8 @@ plain PyTorch, as the JAX package runs them outside any Pallas kernel.
 
 Every dot product is taken in float32 (bf16 operands are widened first,
 which is exact), as the JAX package asks with ``preferred_element_type``.
-Cross-attention (``kv_override``, ``rope=False``) belongs to the
-encoder-decoder slice (ROADMAP queue 1).
+Cross-attention reads keys and values of an encoder memory
+(``attention_block``'s ``kv_override``; :func:`decode_cross_attention_block`).
 """
 from __future__ import annotations
 
@@ -25,7 +25,10 @@ from .layers import apply_rope, dense_init, zeros_init
 NEG_INF = -1e30
 
 
-def init_attention(generator: torch.Generator, dims: Dims, *, device) -> dict:
+def init_attention(generator: torch.Generator, dims: Dims, *, cross: bool = False,
+                   device) -> dict:
+    """Projections of one attention block; a cross-attention block
+    (``cross``) has no biases."""
     cfg = dims.cfg
     d, h, kv, hd = cfg.d_model, dims.heads, dims.kv_heads, cfg.head_dim
     p = {
@@ -34,27 +37,27 @@ def init_attention(generator: torch.Generator, dims: Dims, *, device) -> dict:
         "wv": dense_init(generator, (d, kv, hd), device=device),
         "wo": dense_init(generator, (h, hd, d), scale=1.0 / np.sqrt(h * hd), device=device),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = zeros_init((h, hd), device=device)
         p["bk"] = zeros_init((kv, hd), device=device)
         p["bv"] = zeros_init((kv, hd), device=device)
     return p
 
 
-def _project_q(params, x, positions, theta):
+def _project_q(params, x, positions, theta, *, rope=True):
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
-    return apply_rope(q, positions, theta)
+    return apply_rope(q, positions, theta) if rope else q
 
 
-def _project_kv(params, x, positions, theta):
+def _project_kv(params, x, positions, theta, *, rope=True):
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
     if "bk" in params:
         k = k + params["bk"]
         v = v + params["bv"]
-    return apply_rope(k, positions, theta), v
+    return (apply_rope(k, positions, theta) if rope else k), v
 
 
 def _grouped(q, kv_heads):
@@ -142,19 +145,24 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 2048,
 CHUNKED_THRESHOLD = 8192
 
 
-def attention_block(params, x, dims: Dims, positions, *, causal=True, chunk: int = 2048,
-                    impl: str | None = None):
+def attention_block(params, x, dims: Dims, positions, *, causal=True, kv_override=None,
+                    rope=True, chunk: int = 2048, impl: str | None = None):
     """Full prefill attention over x (B, S, d).  Returns (out, (k, v)).
 
-    Sequences longer than :data:`CHUNKED_THRESHOLD` run
+    ``kv_override`` (B, S_src, d) is the memory the keys and values are
+    projected from (cross-attention), at positions 0..S_src-1.  When
+    either length exceeds :data:`CHUNKED_THRESHOLD` it runs
     ``ops.flash_attention`` with ``chunk`` as its q/kv tiles (``impl``
-    names its implementation; None goes by the device); shorter ones
+    names its implementation; None goes by the device); otherwise
     :func:`full_attention`.
     """
     cfg = dims.cfg
-    q = _project_q(params, x, positions, cfg.rope_theta)
-    k, v = _project_kv(params, x, positions, cfg.rope_theta)
-    if x.shape[1] > CHUNKED_THRESHOLD:
+    q = _project_q(params, x, positions, cfg.rope_theta, rope=rope)
+    src = x if kv_override is None else kv_override
+    kv_pos = positions if kv_override is None else torch.arange(
+        src.shape[1], dtype=torch.int32, device=src.device)[None].expand(src.shape[:2])
+    k, v = _project_kv(params, src, kv_pos, cfg.rope_theta, rope=rope)
+    if x.shape[1] > CHUNKED_THRESHOLD or src.shape[1] > CHUNKED_THRESHOLD:
         out = ops.flash_attention(q, k, v, causal=causal, block_q=chunk, block_k=chunk,
                                   impl=impl)
     else:
@@ -181,3 +189,11 @@ def decode_attention_block(params, x, dims: Dims, cache_k, cache_v, lens):
     valid = torch.arange(smax, device=x.device)[None, :] <= lens[:, None]
     out = full_attention(q, cache_k, cache_v, causal=False, kv_valid=valid)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache_k, cache_v
+
+
+def decode_cross_attention_block(params, x, dims: Dims, mem_k, mem_v):
+    """Cross-attention during decode: the static encoder memory's K/V
+    (B, S_src, KV, hd), no cache write, the query not rotated."""
+    q = _project_q(params, x, None, dims.cfg.rope_theta, rope=False)
+    out = full_attention(q, mem_k, mem_v, causal=False)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])

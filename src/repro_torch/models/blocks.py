@@ -1,71 +1,132 @@
-"""Decoder layer blocks: attention mixer + dense FFN with pre-norm
-residuals, and the per-layer decode step.
+"""Decoder and encoder layer blocks: mixer (attention | mamba) and FFN
+(dense | MoE) with pre-norm residuals, an optional cross-attention
+sub-block (encoder-decoder), and the per-layer decode step.
 
-A layer's *spec* is ``(kind, moe)`` from ``config._layer_list``.  This
-slice of the port runs dense attention layers, spec ``("A", False)``;
-Mamba (``"M"``) and MoE layers raise ``NotImplementedError`` until their
-slices (ROADMAP queue 1, item 12).
+A layer's *spec* is ``(kind, moe)`` with kind in {'A', 'M'}, from
+``config._layer_list``; specs drive both init (the parameter structure)
+and apply, as in the JAX package's ``models/blocks.py``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import attention as attn
+from . import ssm
 from .config import Dims
 from .layers import init_mlp, init_rmsnorm, mlp, rmsnorm
+from .moe import init_moe, moe_ffn
 
 
-def _require_dense(spec) -> None:
-    if tuple(spec) != ("A", False):
-        raise NotImplementedError(
-            f"layer spec {spec}: the port runs dense attention layers only; Mamba and "
-            f"MoE layers come with their slices (ROADMAP queue 1, item 12)")
-
-
-def init_layer(generator: torch.Generator, dims: Dims, spec, *, device) -> dict:
-    _require_dense(spec)
+def init_layer(generator: torch.Generator, dims: Dims, spec, *, cross: bool = False,
+               device) -> dict:
+    kind, moe = spec
     cfg = dims.cfg
-    p = {"mixer_norm": init_rmsnorm(cfg.d_model, device=device),
-         "attn": attn.init_attention(generator, dims, device=device)}
+    p = {"mixer_norm": init_rmsnorm(cfg.d_model, device=device)}
+    if kind == "A":
+        p["attn"] = attn.init_attention(generator, dims, device=device)
+    else:
+        p["mamba"] = ssm.init_mamba(generator, dims, device=device)
+    if cross:
+        p["cross_norm"] = init_rmsnorm(cfg.d_model, device=device)
+        p["cross"] = attn.init_attention(generator, dims, cross=True, device=device)
     if cfg.d_ff > 0:
         p["mlp_norm"] = init_rmsnorm(cfg.d_model, device=device)
-        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.dense_ff or cfg.d_ff, device=device)
+        if moe:
+            p["moe"] = init_moe(generator, cfg.d_model, cfg.d_ff, cfg.num_experts,
+                                cfg.num_shared_experts, device=device)
+        else:
+            p["mlp"] = init_mlp(generator, cfg.d_model, cfg.dense_ff or cfg.d_ff,
+                                device=device)
     return p
 
 
-def _ffn(params, x, dims: Dims):
+def _ffn(params, x, dims: Dims, aux):
+    """The FFN sub-block; MoE layers add their aux losses into ``aux``
+    (when it is not None).  Returns (x, aux)."""
+    cfg = dims.cfg
+    if "moe" in params:
+        h, moe_aux = moe_ffn(params["moe"], rmsnorm(params["mlp_norm"], x, cfg.rms_eps),
+                             num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+                             capacity_factor=cfg.capacity_factor)
+        if aux is not None:
+            aux = {k: aux.get(k, 0.0) + v for k, v in moe_aux.items()}
+        return x + h, aux
     if "mlp" in params:
-        return x + mlp(params["mlp"], rmsnorm(params["mlp_norm"], x, dims.cfg.rms_eps))
-    return x
+        return x + mlp(params["mlp"], rmsnorm(params["mlp_norm"], x, cfg.rms_eps)), aux
+    return x, aux
 
 
-def apply_layer(params, x, dims: Dims, spec, *, positions, causal=True,
-                attn_chunk: int = 2048, impl: str | None = None):
-    """Full-sequence layer (prefill).  Returns (x, cache_out), cache_out
-    holding this pass's attention K/V."""
-    _require_dense(spec)
-    h = rmsnorm(params["mixer_norm"], x, dims.cfg.rms_eps)
-    out, (k, v) = attn.attention_block(params["attn"], h, dims, positions, causal=causal,
-                                       chunk=attn_chunk, impl=impl)
-    x = _ffn(params, x + out, dims)
-    return x, {"k": k, "v": v}
+def apply_layer(params, x, dims: Dims, spec, *, positions, causal=True, enc_mem=None,
+                aux=None, ssm_chunk: int = ssm.DEFAULT_CHUNK, attn_chunk: int = 2048,
+                impl: str | None = None):
+    """Full-sequence layer (prefill).  Returns (x, cache_out, aux).
+
+    cache_out carries whatever decode needs: this pass's attention K/V,
+    the mamba final states, the cross-attention memory K/V.  ``impl``
+    names the flash-attention op's implementation (None: by device).
+    """
+    kind, _ = spec
+    cfg = dims.cfg
+    cache_out = {}
+    h = rmsnorm(params["mixer_norm"], x, cfg.rms_eps)
+    if kind == "A":
+        out, (k, v) = attn.attention_block(params["attn"], h, dims, positions, causal=causal,
+                                           chunk=attn_chunk, impl=impl)
+        cache_out["k"], cache_out["v"] = k, v
+    else:
+        out, states = ssm.mamba_block(params["mamba"], h, dims, chunk=ssm_chunk)
+        cache_out["mamba"] = states
+    x = x + out
+    if "cross" in params:
+        h = rmsnorm(params["cross_norm"], x, cfg.rms_eps)
+        out, (mk, mv) = attn.attention_block(params["cross"], h, dims, positions,
+                                             causal=False, kv_override=enc_mem,
+                                             chunk=attn_chunk, impl=impl)
+        cache_out["mk"], cache_out["mv"] = mk, mv
+        x = x + out
+    x, aux = _ffn(params, x, dims, aux)
+    return x, cache_out, aux
 
 
 def decode_layer(params, x, dims: Dims, spec, cache, lens):
     """One-token layer step.  x (B,1,d); cache is this layer's state dict,
-    updated in place.  Returns (x, cache)."""
-    _require_dense(spec)
-    h = rmsnorm(params["mixer_norm"], x, dims.cfg.rms_eps)
-    out, ck, cv = attn.decode_attention_block(params["attn"], h, dims, cache["k"],
-                                              cache["v"], lens)
-    x = _ffn(params, x + out, dims)
-    return x, dict(cache, k=ck, v=cv)
+    updated in place (K/V rows, mamba conv and SSM states).  Returns
+    (x, cache)."""
+    kind, _ = spec
+    cfg = dims.cfg
+    h = rmsnorm(params["mixer_norm"], x, cfg.rms_eps)
+    if kind == "A":
+        out, _, _ = attn.decode_attention_block(params["attn"], h, dims, cache["k"],
+                                                cache["v"], lens)
+    else:
+        state = cache["mamba"]
+        out, new = ssm.mamba_decode_step(params["mamba"], h, dims, state["conv"],
+                                         state["ssm"])
+        for name in ("x", "bc"):
+            state["conv"][name].copy_(new["conv"][name])
+        state["ssm"].copy_(new["ssm"])
+    x = x + out
+    if "cross" in params:
+        h = rmsnorm(params["cross_norm"], x, cfg.rms_eps)
+        x = x + attn.decode_cross_attention_block(params["cross"], h, dims, cache["mk"],
+                                                  cache["mv"])
+    x, _ = _ffn(params, x, dims, None)
+    return x, cache
 
 
-def init_layer_cache(dims: Dims, spec, batch: int, max_len: int, *, stack: tuple = (),
-                     dtype=torch.bfloat16, device) -> dict:
+def init_layer_cache(dims: Dims, spec, batch: int, max_len: int, src_len: int = 0, *,
+                     stack: tuple = (), dtype=torch.bfloat16, device) -> dict:
     """Zero decode cache for one layer, or for ``stack`` layers of it."""
-    _require_dense(spec)
-    shape = tuple(stack) + (batch, max_len, dims.kv_heads, dims.cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    kind, _ = spec
+    cfg = dims.cfg
+    c = {}
+    lead, heads = tuple(stack) + (batch,), (dims.kv_heads, cfg.head_dim)
+    if kind == "A":
+        c["k"] = torch.zeros(lead + (max_len,) + heads, dtype=dtype, device=device)
+        c["v"] = torch.zeros(lead + (max_len,) + heads, dtype=dtype, device=device)
+    else:
+        c["mamba"] = ssm.init_mamba_state(dims, batch, dtype, stack=stack, device=device)
+    if cfg.is_encdec and src_len > 0:
+        c["mk"] = torch.zeros(lead + (src_len,) + heads, dtype=dtype, device=device)
+        c["mv"] = torch.zeros(lead + (src_len,) + heads, dtype=dtype, device=device)
+    return c

@@ -1,11 +1,13 @@
 """Arch config -> init, prefill and decode, layer group by layer group.
 
-The JAX package's ``models/model.py`` for the serving path.  Layers with
+The JAX package's ``models/model.py`` for the serving path, for every
+family: dense, MoE, SSM, hybrid and encoder-decoder.  Layers with
 identical structure form a *group* whose parameters are stacked on a
 leading layer axis, as the JAX package stacks them for ``lax.scan``; here
 a Python loop walks the stack.  The parameter tree is the JAX package's
 after ``strip_p``: ``{"embed", "final_norm", "groups": [group][i][...]}``
-with a leading layer axis on every group leaf.
+with a leading layer axis on every group leaf, and for an
+encoder-decoder ``"encoder": {"layers": (stacked layer,), "norm"}``.
 
 Public entry points (cfg/dims describe the model):
 
@@ -15,7 +17,7 @@ Public entry points (cfg/dims describe the model):
     decode_step(params, cfg, dims, token, cache)   -> (logits, Cache)
 
 ``forward``, ``lm_loss`` and rematerialisation belong to the training
-slice, the encoder to the encoder-decoder slice (ROADMAP queue 1).
+slice (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ from .. import platform
 from . import blocks
 from .config import ArchConfig, Dims, _layer_list
 from .layers import dense_init, embed, init_embedding, init_rmsnorm, rmsnorm
+
+ENCODER_SPEC = ("A", False)        # every encoder layer: attention and a dense FFN
 
 # ---------------------------------------------------------------------------
 # Layer grouping and tree helpers
@@ -81,9 +85,6 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, dims: Dims, device=
     """Random float32 parameters drawn from ``generator`` (on its device),
     placed on ``device`` (None: the CUDA card)."""
     device = platform.resolve(device)
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models come with their slice "
-                                  "(ROADMAP queue 1, item 12)")
     params: dict[str, Any] = {
         "embed": init_embedding(generator, dims.vocab, cfg.d_model, device=device),
         "final_norm": init_rmsnorm(cfg.d_model, device=device),
@@ -92,10 +93,16 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, dims: Dims, device=
         params["lm_head"] = dense_init(generator, (cfg.d_model, dims.vocab), device=device)
     groups = []
     for pspec, count in layer_groups(cfg):
-        layers = [tuple(blocks.init_layer(generator, dims, spec, device=device)
+        layers = [tuple(blocks.init_layer(generator, dims, spec, cross=cfg.is_encdec,
+                                          device=device)
                         for spec in pspec) for _ in range(count)]
         groups.append(_stack(layers))
     params["groups"] = groups
+    if cfg.is_encdec:
+        layers = [(blocks.init_layer(generator, dims, ENCODER_SPEC, device=device),)
+                  for _ in range(cfg.encoder_layers)]
+        params["encoder"] = {"layers": _stack(layers),
+                             "norm": init_rmsnorm(cfg.d_model, device=device)}
     return params
 
 
@@ -115,10 +122,17 @@ def _logits(wp, cfg: ArchConfig, x):
     return torch.einsum("bsd,dv->bsv", x, wp["lm_head"])
 
 
-def _run_groups(params, cfg, dims, x, positions, *, causal, collect_cache=False,
-                attn_chunk=2048, impl=None):
-    """Every layer of every group in order.  Returns (x, caches|None),
-    caches stacked per group as the parameters are."""
+def _zero_aux(device):
+    return {"moe_lb_loss": torch.zeros((), dtype=torch.float32, device=device),
+            "moe_z_loss": torch.zeros((), dtype=torch.float32, device=device)}
+
+
+def _run_groups(params, cfg, dims, x, positions, *, causal, enc_mem=None, ssm_chunk=128,
+                collect_cache=False, attn_chunk=2048, impl=None):
+    """Every layer of every group in order.  Returns (x, aux, caches|None):
+    the MoE aux losses summed over layers (None without experts), caches
+    stacked per group as the parameters are."""
+    aux = _zero_aux(x.device) if cfg.num_experts > 0 else None
     caches = [] if collect_cache else None
     for (pspec, count), gparams in zip(layer_groups(cfg), params["groups"]):
         outs = []
@@ -126,15 +140,28 @@ def _run_groups(params, cfg, dims, x, positions, *, causal, collect_cache=False,
             pslice = _layer(gparams, layer)
             layer_out = []
             for i, spec in enumerate(pspec):
-                x, cache_out = blocks.apply_layer(pslice[i], x, dims, spec,
-                                                  positions=positions, causal=causal,
-                                                  attn_chunk=attn_chunk, impl=impl)
+                x, cache_out, aux = blocks.apply_layer(
+                    pslice[i], x, dims, spec, positions=positions, causal=causal,
+                    enc_mem=enc_mem, aux=aux, ssm_chunk=ssm_chunk, attn_chunk=attn_chunk,
+                    impl=impl)
                 layer_out.append(cache_out)
             if collect_cache:
                 outs.append(tuple(layer_out))
         if collect_cache:
             caches.append(_stack(outs))
-    return x, caches
+    return x, aux, caches
+
+
+def _encode(params, cfg, dims, enc_feats, *, impl=None):
+    """Encoder stack over precomputed frontend features (B, S_src, d):
+    non-causal self-attention layers, then the encoder's norm."""
+    x = enc_feats
+    positions = _positions(x)
+    for layer in range(cfg.encoder_layers):
+        pslice = _layer(params["encoder"]["layers"], layer)
+        x, _, _ = blocks.apply_layer(pslice[0], x, dims, ENCODER_SPEC, positions=positions,
+                                     causal=False, impl=impl)
+    return rmsnorm(params["encoder"]["norm"], x, cfg.rms_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -147,32 +174,46 @@ class Cache(NamedTuple):
     lens: torch.Tensor            # (B,) int32 tokens already in cache
 
 
-def init_cache(cfg: ArchConfig, dims: Dims, batch: int, max_len: int, *,
+def init_cache(cfg: ArchConfig, dims: Dims, batch: int, max_len: int, src_len: int = 0, *,
                dtype=torch.bfloat16, device=None) -> Cache:
+    """Zero decode state: K/V of ``max_len`` positions, mamba states, and
+    for an encoder-decoder with ``src_len`` > 0 the memory K/V."""
     device = platform.resolve(device)
     groups = tuple(
-        tuple(blocks.init_layer_cache(dims, spec, batch, max_len, stack=(count,), dtype=dtype,
-                                      device=device) for spec in pspec)
+        tuple(blocks.init_layer_cache(dims, spec, batch, max_len, src_len, stack=(count,),
+                                      dtype=dtype, device=device) for spec in pspec)
         for pspec, count in layer_groups(cfg))
     return Cache(groups=groups, lens=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
-def prefill(params, cfg: ArchConfig, dims: Dims, tokens, *, compute_dtype=torch.bfloat16,
-            attn_chunk: int = 2048, impl: str | None = None):
+def prefill(params, cfg: ArchConfig, dims: Dims, tokens, *, enc_feats=None,
+            compute_dtype=torch.bfloat16, ssm_chunk: int = 128, attn_chunk: int = 2048,
+            impl: str | None = None):
     """Process a full prompt; returns (last-token logits (B, 1, vocab)
     float32, Cache).
 
-    ``tokens`` (B, S) go to the parameters' device.  ``impl`` names the
-    implementation of the flash-attention op of sequences longer than
-    ``attention.CHUNKED_THRESHOLD`` (None: by device).  The returned
-    attention caches have length S; ``launch.serve`` re-bases them into a
-    max_len cache.
+    ``tokens`` (B, S) go to the parameters' device, and so do the
+    encoder-decoder's frontend features ``enc_feats`` (B, S_src, d).
+    ``impl`` names the implementation of the flash-attention op of
+    sequences longer than ``attention.CHUNKED_THRESHOLD`` (None: by
+    device); ``ssm_chunk`` is the chunk of the mamba layers' scan.  The
+    returned attention caches have length S; ``launch.serve`` re-bases
+    them into a max_len cache.
     """
     wp = _cast(params, compute_dtype)
-    tokens = torch.as_tensor(tokens, device=wp["embed"].device)
+    device = wp["embed"].device
+    tokens = torch.as_tensor(tokens, device=device)
     x = embed(wp["embed"], tokens)
-    x, caches = _run_groups(wp, cfg, dims, x, _positions(tokens), causal=True,
-                            collect_cache=True, attn_chunk=attn_chunk, impl=impl)
+    enc_mem = None
+    if cfg.is_encdec:
+        if enc_feats is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: prefill needs enc_feats")
+        enc_mem = _encode(wp, cfg, dims,
+                          torch.as_tensor(enc_feats, device=device).to(compute_dtype),
+                          impl=impl)
+    x, _, caches = _run_groups(wp, cfg, dims, x, _positions(tokens), causal=True,
+                               enc_mem=enc_mem, ssm_chunk=ssm_chunk, collect_cache=True,
+                               attn_chunk=attn_chunk, impl=impl)
     x = rmsnorm(wp["final_norm"], x[:, -1:], cfg.rms_eps)
     b, s = tokens.shape
     cache = Cache(groups=tuple(caches),
@@ -183,9 +224,10 @@ def prefill(params, cfg: ArchConfig, dims: Dims, tokens, *, compute_dtype=torch.
 def decode_step(params, cfg: ArchConfig, dims: Dims, token, cache: Cache, *,
                 compute_dtype=torch.bfloat16):
     """One token for every sequence.  token (B, 1) -> (logits (B, 1, vocab)
-    float32, Cache).  The cache's K/V are updated in place; the returned
-    Cache holds the same tensors and ``lens + 1``.  Decode attention is
-    plain PyTorch (no kernel op), so there is no ``impl``."""
+    float32, Cache).  The cache's K/V and mamba states are updated in
+    place; the returned Cache holds the same tensors and ``lens + 1``.
+    Decode attention is plain PyTorch (no kernel op), so there is no
+    ``impl``."""
     wp = _cast(params, compute_dtype)
     token = torch.as_tensor(token, device=wp["embed"].device)
     x = embed(wp["embed"], token)

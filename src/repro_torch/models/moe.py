@@ -1,0 +1,116 @@
+"""Mixture-of-Experts with GShard/Switch-style capacity dispatch, ported
+from the JAX package's ``models/moe.py``.
+
+Dispatch is the einsum formulation: one-hot dispatch and combine tensors
+over token groups of ``GROUP`` tokens (``min(GROUP, tokens)``), each
+expert taking at most ``capacity`` tokens of a group.  The JAX package
+computes these einsums outside any Pallas kernel, and so does the port
+(``torch.einsum`` in the activations' dtype).
+
+Supports shared experts (DeepSeek-MoE: always-on experts added to the
+routed output) and returns the load-balancing and router-z auxiliary
+losses.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .layers import dense_init, init_mlp, mlp
+
+GROUP = 1024
+
+
+def init_moe(generator: torch.Generator, d: int, ff: int, num_experts: int,
+             num_shared: int, *, device) -> dict:
+    p = {
+        "router": dense_init(generator, (d, num_experts), scale=0.02, device=device),
+        "w_gate": dense_init(generator, (num_experts, d, ff), device=device),
+        "w_up": dense_init(generator, (num_experts, d, ff), device=device),
+        "w_down": dense_init(generator, (num_experts, ff, d), device=device),
+    }
+    if num_shared:
+        p["shared"] = init_mlp(generator, d, ff * num_shared, device=device)
+    return p
+
+
+def ranked_top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest entries of the last axis, largest first, the lower
+    index first among equal values, as ``jax.lax.top_k`` orders them
+    (``torch.topk`` promises no order among ties): (values, indices)."""
+    order = torch.sort(x, dim=-1, descending=True, stable=True)
+    return order.values[..., :k], order.indices[..., :k]
+
+
+def _dispatch_tensors(router_probs, top_k: int, capacity: int):
+    """router_probs (G, S, E) -> dispatch (G, S, E, C) 0/1 and combine
+    (G, S, E, C) gate weights in the probabilities' dtype, the
+    renormalised top-k gates (G, S, K) and the expert indices (G, S, K).
+
+    Sequential-choice position assignment (Switch Transformer): the k-th
+    choice of every token is placed after all (k-1)-th choices, so earlier
+    choices win capacity; a choice past its expert's capacity is dropped.
+    """
+    g, s, e = router_probs.shape
+    dtype = router_probs.dtype
+    gates, idx = ranked_top_k(router_probs, top_k)              # (G,S,K)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+
+    dispatch = torch.zeros((g, s, e, capacity), dtype=dtype, device=router_probs.device)
+    combine = torch.zeros_like(dispatch)
+    # expert fill counts carried across the K sequential choices
+    fill = torch.zeros((g, e), dtype=torch.int64, device=router_probs.device)
+    for k in range(top_k):
+        onehot = F.one_hot(idx[:, :, k], e)                           # (G,S,E) int64
+        # position of each token within its expert for this choice
+        pos_in_e = torch.cumsum(onehot, dim=1) - onehot + fill[:, None, :]
+        pos = (pos_in_e * onehot).sum(-1)                             # (G,S)
+        keep = pos < capacity
+        oh_cap = F.one_hot(torch.clamp(pos, 0, capacity - 1), capacity).to(dtype)
+        sel = onehot.to(dtype) * keep[..., None].to(dtype)
+        dispatch = dispatch + sel[..., None] * oh_cap[:, :, None, :]
+        combine = combine + (sel * gates[:, :, k:k + 1])[..., None] * oh_cap[:, :, None, :]
+        fill = fill + onehot.sum(dim=1)
+    return dispatch, combine, gates, idx
+
+
+def moe_capacity(group: int, top_k: int, capacity_factor: float, num_experts: int) -> int:
+    """Slots per expert and group: ceil(group * k * cf / E), at least k."""
+    capacity = int(np.ceil(group * top_k * capacity_factor / num_experts))
+    return max(capacity, top_k)
+
+
+def moe_ffn(params, x, *, num_experts: int, top_k: int, capacity_factor: float,
+            group: int = GROUP):
+    """x (B, S, d) -> (out (B, S, d), {"moe_lb_loss", "moe_z_loss"} f32
+    scalars).  The B * S tokens form groups of ``min(group, B * S)``."""
+    b, s, d = x.shape
+    t = b * s
+    group = min(group, t)
+    if t % group:
+        raise ValueError(f"{t} tokens do not split into groups of {group}")
+    g = t // group
+    xt = x.reshape(g, group, d)
+
+    router_logits = torch.einsum("gsd,de->gse", xt, params["router"]).to(torch.float32)
+    probs = torch.softmax(router_logits, dim=-1)
+    capacity = moe_capacity(group, top_k, capacity_factor, num_experts)
+    dispatch, combine, gates, idx = _dispatch_tensors(probs, top_k, capacity)
+
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xt)
+    h = F.silu(torch.einsum("egcd,edf->egcf", expert_in, params["w_gate"]))
+    h = h * torch.einsum("egcd,edf->egcf", expert_in, params["w_up"])
+    expert_out = torch.einsum("egcf,efd->egcd", h, params["w_down"])
+    out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
+    out = out.reshape(b, s, d)
+
+    if "shared" in params:
+        out = out + mlp(params["shared"], x)
+
+    # aux: load-balance (Switch eq. 4-6) + router z-loss
+    me = probs.mean(dim=(0, 1))                                       # (E,)
+    one = F.one_hot(idx[..., 0], num_experts).to(torch.float32).mean(dim=(0, 1))
+    lb_loss = num_experts * torch.sum(me * one)
+    z_loss = torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2)
+    return out, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}

@@ -699,3 +699,139 @@ def test_chunked_prefill_on_the_card_equals_the_cpu(cuda, monkeypatch):
     lg_c, _ = tM.prefill(params_c, cfg, dims, prompts, compute_dtype=torch.float32,
                          attn_chunk=16)
     torch.testing.assert_close(lg_g.cpu(), lg_c, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the MoE, SSM and encoder-decoder serving paths at small widths
+# ---------------------------------------------------------------------------
+
+from repro_torch.launch import serve as tserve  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
+
+
+def _family(arch, cuda):
+    """The reduced config of ``arch`` with parameters drawn on the CPU and
+    copied to the card: (cfg, dims, CPU params, card params)."""
+    cfg = configs.reduced(arch)
+    dims = compute_dims(cfg)
+    params_c = tM.init_params(torch.Generator().manual_seed(3), cfg, dims, device="cpu")
+    return cfg, dims, params_c, tM._tree_map(lambda x: x.to(cuda), params_c)
+
+
+def _tree_close(got, want, rtol):
+    """Every leaf of two caches within ``rtol`` of the leaf's max |x|;
+    returns the number of leaves."""
+    pairs = []
+
+    def walk(a, b):
+        if isinstance(a, dict):
+            assert sorted(a) == sorted(b)
+            for key in a:
+                walk(a[key], b[key])
+        elif isinstance(a, (list, tuple)):
+            for x, y in zip(a, b):
+                walk(x, y)
+        else:
+            pairs.append((a, b))
+
+    walk(got, want)
+    for a, b in pairs:
+        assert a.shape == b.shape and a.dtype == b.dtype
+        top = float(b.abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= rtol * max(top, 1e-30)
+    return len(pairs)
+
+
+def test_encdec_prefill_kernel_path_equals_plain_path(cuda, monkeypatch):
+    """The reduced seamless prefill with the flash branch at 16 tokens: the
+    encoder (non-causal, Sq = Skv), the decoder (causal) and the
+    cross-attention (non-causal, 48 queries on 32 memory rows) through the
+    f32 kernel, one launch each per layer, against the plain path
+    (``impl="torch_ref"``) on the card: logits and every cache leaf within
+    1e-4 of max |x|."""
+    monkeypatch.setattr(tattn, "CHUNKED_THRESHOLD", 16)
+    cfg, dims, _, params = _family("seamless-m4t-large-v2", cuda)
+    rng = np.random.default_rng(7)
+    prompts = torch.from_numpy(rng.integers(0, 256, size=(3, 48))).to(cuda)
+    frames = torch.from_numpy(rng.normal(size=(3, 32, cfg.d_model)).astype(np.float32)).to(cuda)
+    before = kfa.launches
+    lg, cache = tM.prefill(params, cfg, dims, prompts, enc_feats=frames,
+                           compute_dtype=torch.float32, attn_chunk=16)
+    assert kfa.launches == before + cfg.encoder_layers + 2 * cfg.num_layers
+    lg_p, cache_p = tM.prefill(params, cfg, dims, prompts, enc_feats=frames,
+                               compute_dtype=torch.float32, attn_chunk=16, impl="torch_ref")
+    assert kfa.launches == before + cfg.encoder_layers + 2 * cfg.num_layers
+    assert float((lg - lg_p).abs().max()) <= 1e-4 * float(lg_p.abs().max())
+    assert _tree_close(cache.groups, cache_p.groups, 1e-4) == 4 * len(cache.groups)
+
+
+def test_encdec_greedy_generate_on_the_card_equals_the_cpu(cuda):
+    cfg, dims, params_c, params_g = _family("seamless-m4t-large-v2", cuda)
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(0, 256, size=(3, 16))
+    frames = rng.normal(size=(3, 12, cfg.d_model)).astype(np.float32)
+    got = tserve.greedy_generate(params_g, cfg, dims, torch.from_numpy(prompts), 6,
+                                 enc_feats=torch.from_numpy(frames).to(cuda))
+    want = tserve.greedy_generate(params_c, cfg, dims, torch.from_numpy(prompts), 6,
+                                  enc_feats=torch.from_numpy(frames))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.25])
+def test_moe_ffn_on_the_card_equals_the_cpu(cuda, cf):
+    cfg, dims, params_c, params_g = _family("deepseek-moe-16b", cuda)
+    moe_c = params_c["groups"][1][0]["moe"]
+    moe_c = {k: (v[0] if isinstance(v, torch.Tensor) else {kk: vv[0] for kk, vv in v.items()})
+             for k, v in moe_c.items()}
+    moe_g = tM._tree_map(lambda x: x.to(cuda), moe_c)
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(4, 96, cfg.d_model))
+                         .astype(np.float32))
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok, capacity_factor=cf)
+    out_g, aux_g = tmoe.moe_ffn(moe_g, x.to(cuda), **kw)
+    out_c, aux_c = tmoe.moe_ffn(moe_c, x, **kw)
+    torch.testing.assert_close(out_g.cpu(), out_c, rtol=1e-5, atol=1e-5)
+    for name in aux_c:
+        torch.testing.assert_close(aux_g[name].cpu(), aux_c[name], rtol=1e-5, atol=1e-6)
+
+
+def test_moe_prefill_kernel_path_equals_plain_path(cuda, monkeypatch):
+    """The reduced deepseek-moe prefill through the flash branch (16
+    tokens): the kernel path against the plain path on the card, logits and
+    K/V within 1e-4 of max |x|; decode steps after it equal the CPU's."""
+    monkeypatch.setattr(tattn, "CHUNKED_THRESHOLD", 16)
+    cfg, dims, params_c, params = _family("deepseek-moe-16b", cuda)
+    prompts = torch.from_numpy(np.random.default_rng(10).integers(0, 256, size=(2, 64)))
+    before = kfa.launches
+    lg, cache = tM.prefill(params, cfg, dims, prompts, compute_dtype=torch.float32,
+                           attn_chunk=16)
+    assert kfa.launches == before + cfg.num_layers
+    lg_p, cache_p = tM.prefill(params, cfg, dims, prompts, compute_dtype=torch.float32,
+                               attn_chunk=16, impl="torch_ref")
+    assert float((lg - lg_p).abs().max()) <= 1e-4 * float(lg_p.abs().max())
+    _tree_close(cache.groups, cache_p.groups, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-1.5-large-398b"])
+def test_ssm_prefill_and_decode_on_the_card_equal_the_cpu(cuda, arch):
+    """Mamba layers on the card against the CPU: the chunked scan's states
+    after prefill, then decode steps (the states written back into the
+    stacked cache in place), logits within 1e-4 of max |logit|; prefill of
+    S-1 tokens then one decode step equals the prefill of S tokens."""
+    cfg, dims, params_c, params_g = _family(arch, cuda)
+    prompts = np.random.default_rng(11).integers(0, 256, size=(2, 24))
+    lg, cache = tM.prefill(params_g, cfg, dims, torch.from_numpy(prompts),
+                           compute_dtype=torch.float32, ssm_chunk=8)
+    lg_c, cache_c = tM.prefill(params_c, cfg, dims, torch.from_numpy(prompts),
+                               compute_dtype=torch.float32, ssm_chunk=8)
+    assert float((lg.cpu() - lg_c).abs().max()) <= 1e-4 * float(lg_c.abs().max())
+    _tree_close(tM._tree_map(lambda x: x.cpu(), cache.groups), cache_c.groups, 1e-4)
+    lg23, pcache = tM.prefill(params_g, cfg, dims, torch.from_numpy(prompts[:, :23]),
+                              compute_dtype=torch.float32, ssm_chunk=23)
+    cache = tserve._rebase_cache(tM.init_cache(cfg, dims, 2, 26, dtype=torch.float32,
+                                               device=cuda), pcache, 23)
+    lg24, cache = tM.decode_step(params_g, cfg, dims, torch.from_numpy(prompts[:, 23:]), cache,
+                                 compute_dtype=torch.float32)
+    assert float((lg24 - lg).abs().max()) <= 1e-4 * float(lg.abs().max())
+    mamba = [c for g in cache.groups for c in g if "mamba" in c][0]["mamba"]
+    assert mamba["ssm"].dtype == torch.float32 and bool(mamba["ssm"].abs().sum() > 0)
