@@ -76,6 +76,17 @@ w=1024, t=3):
   of 12,288 rows (``serve_encdec``: 72 f32 flash launches, the encoder's
   and the cross-attention's non-causal; then a bf16 prefill,
   ``serve_encdec_bf16``, 72 tensor-core launches);
+* training (``train`` phase, path ``train``): qwen2.5-3b at full width
+  and depth, random f32 weights, AdamW, bf16 compute, remat "full" and
+  the SJPC monitor at the paper's config, 8 steps of one batch of 1 x
+  4,096 tokens from ``token_batches``; the monitor's counters against a
+  ``torch_ref`` twin bit for bit, its kernels dispatched as predicted
+  (``sample_weights`` once a step, ``fingerprint`` and ``sketch_update``
+  once a step a level), the loss falling; at 4 of 36 layers the remat
+  modes against each other, a bf16 step's loss against an f32 step's and
+  three Q8Adam steps; and the fault-tolerant driver on the example's
+  lm-100m preset, a run with a failure at step 17 against an
+  uninterrupted one, bit for bit;
 * the plugin kinds (``plugins`` phase): ``examples/plugins_torch`` loaded
   through ``load_plugins``, a service of 16 ipf, 16 theta_kmv and 16 SJPC
   tenants of the paper's group (4,096 records each per epoch, 6 epochs,
@@ -115,19 +126,27 @@ import io
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# cuBLAS picks run-to-run deterministic kernels only with a fixed workspace,
+# which the train phase's deterministic gates need; it is read when CUDA
+# starts.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch import tree as ptree  # noqa: E402
 from repro_torch import estimators as E  # noqa: E402
 from repro_torch.configs.sjpc_paper import PAPER_DEFAULTS  # noqa: E402
 from repro_torch.core import baselines, exact, prng, sjpc  # noqa: E402
@@ -135,6 +154,7 @@ from repro_torch.core import projections as proj  # noqa: E402
 from repro_torch.core import sketch as sk  # noqa: E402
 from repro_torch.core.hashing import P31, as_field_tensor  # noqa: E402
 from repro_torch.data.recordize import np_records_from_tokens, records_from_tokens  # noqa: E402
+from repro_torch.data.loader import to_device, token_batches  # noqa: E402
 from repro_torch.data.synthetic import planted_cluster_records, shingle_records  # noqa: E402
 from repro_torch.distributed import harness, wire  # noqa: E402
 from repro_torch.distributed.coordinator import Coordinator, LocalWorker  # noqa: E402
@@ -150,11 +170,15 @@ from repro_torch.kernels import sample_weights as ksw  # noqa: E402
 from repro_torch.kernels import sketch_moments as ksm  # noqa: E402
 from repro_torch.kernels import sketch_update as ksu  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.config import compute_dims  # noqa: E402
 from repro_torch import service as svc_mod  # noqa: E402
 from repro_torch.obs import Observability, Tracer, metrics  # noqa: E402
+from repro_torch.optim import make_adamw, make_q8adam  # noqa: E402
+from repro_torch.optim.schedules import constant  # noqa: E402
+from repro_torch.runtime import SimulatedFailure  # noqa: E402
 from repro_torch.service.ingest import ingest_key, ingest_key_grid  # noqa: E402
 from repro_torch.sketchstream import monitor as mon  # noqa: E402
 
@@ -314,6 +338,29 @@ PLUGIN_SEED = 2222
 PLUGIN_CLUSTER_TENANTS = 12     # the in-process cluster's tenants (4 of each kind)
 PLUGIN_CLUSTER_CYCLES = 3
 PLUGIN_CLUSTER_ROWS = 2048
+
+# The train phase: qwen2.5-3b (the serve phase's model) at full width and
+# depth, random f32 weights from the seed, AdamW at a constant rate, bf16
+# compute, remat "full", the SJPC monitor at the paper's config; one batch
+# of 1 x 4,096 tokens from token_batches, repeated for 8 steps.  The remat,
+# precision and Q8Adam gates run the same width cut to 4 of 36 layers; the
+# driver gate the example's lm-100m preset, 30 steps of 8 x 1,024 tokens, a
+# checkpoint every 10, a failure injected at step 17.
+TRAIN_ARCH = SERVE_ARCH
+TRAIN_TOKENS = 4096
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4
+TRAIN_SEED = 1
+TRAIN_MONITOR = mon.SketchMonitorConfig(d=6, s=3, ratio=0.5, width=1024, depth=3, shards=1)
+TRAIN_LEVELS = TRAIN_MONITOR.d - TRAIN_MONITOR.s + 1
+TRAIN_KERNELS = ("sample_weights", "fingerprint", "sketch_update")
+TRAIN_CHECK_LAYERS = 4
+TRAIN_Q8_STEPS = 3
+REMAT_RTOL = 1e-6               # remat modes, relative to each leaf's max |x|, if not equal
+PRECISION_RTOL = 1e-2           # a bf16 step's loss against an f32 step's
+DRIVER_PRESET = "100m"
+DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS = 8, 1024, 30
+DRIVER_FAILURE_AT = 17
 
 KERNELS = {"fused_ingest": kfi, "sample_weights": ksw, "fingerprint": kfp,
            "fused_query": kfq, "fused_pairs": kpairs, "sketch_update": ksu,
@@ -2758,6 +2805,209 @@ def phase_accuracy(device, smi: str) -> dict[str, int]:
     return launches
 
 
+def train_loss_and_grads(params, cfg, dims, batch, remat: str, dtype):
+    """(loss, gradients of every leaf in leaf order) of one forward and
+    backward."""
+    leaves = ptree.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        logits, _ = M.forward(params, cfg, dims, batch["tokens"], compute_dtype=dtype,
+                              remat=remat)
+        loss = M.lm_loss(logits, batch["labels"], cfg.vocab_size)
+        del logits
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def check_train_variants(device, cfg, batch) -> dict:
+    """The train phase's gates at full width and TRAIN_CHECK_LAYERS of
+    depth: remat "none", "full" and "dots" give the same loss and
+    gradients (under deterministic algorithms, so that the embedding's
+    backward adds in one order; bit for bit, else within REMAT_RTOL of each
+    leaf's max |x|), a bf16 step's loss is within PRECISION_RTOL of an f32
+    step's, and TRAIN_Q8_STEPS Q8Adam steps give a finite loss."""
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS)
+    dims = compute_dims(cut, tp=1)
+    params = M.init_params(torch.Generator(device).manual_seed(TRAIN_SEED), cut, dims,
+                           device=device)
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        want_loss, want = train_loss_and_grads(params, cut, dims, batch, "none", torch.bfloat16)
+        exact, worst = True, 0.0
+        for remat in ("full", "dots"):
+            loss, grads = train_loss_and_grads(params, cut, dims, batch, remat, torch.bfloat16)
+            exact &= equal(loss, want_loss)
+            for g, w in zip(grads, want):
+                exact &= equal(g, w)
+                scale = float(w.abs().max())
+                worst = max(worst, float((g - w).abs().max()) / max(scale, 1e-30))
+            del grads
+        remat_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(exact or worst <= REMAT_RTOL,
+            f"train: remat modes differ by {worst:.3e} of a leaf's max |x|")
+    log(f"train remat at {TRAIN_CHECK_LAYERS} of {cfg.num_layers} layers: none/full/dots loss "
+        f"{float(want_loss):.6f}; bit for bit: {exact}; worst leaf gap {worst:.3e} of its max "
+        f"|x| ({remat_s:.1f} s for the three)")
+    del want, params
+    torch.cuda.empty_cache()
+
+    losses = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        opt = make_adamw(constant(TRAIN_LR))
+        state, _ = train.make_train_state(torch.Generator(device).manual_seed(TRAIN_SEED), cut,
+                                          dims, opt, device=device)
+        step = train.make_train_step(cut, dims, opt, remat="full", compute_dtype=dtype)
+        _, metrics_ = step(state, batch)
+        losses[dtype] = float(metrics_["loss"])
+        del state, step
+    rel = abs(losses[torch.bfloat16] - losses[torch.float32]) / abs(losses[torch.float32])
+    require(rel <= PRECISION_RTOL,
+            f"train: bf16 step loss {losses[torch.bfloat16]} is {rel:.3e} from f32's "
+            f"{losses[torch.float32]}")
+    log(f"train precision: step loss f32 {losses[torch.float32]:.6f}, bf16 "
+        f"{losses[torch.bfloat16]:.6f}, relative gap {rel:.3e} (gate {PRECISION_RTOL})")
+
+    opt = make_q8adam(constant(TRAIN_LR))
+    state, _ = train.make_train_state(torch.Generator(device).manual_seed(TRAIN_SEED), cut,
+                                      dims, opt, device=device)
+    step = train.make_train_step(cut, dims, opt, remat="full", compute_dtype=torch.bfloat16)
+    q8_losses = []
+    for _ in range(TRAIN_Q8_STEPS):
+        state, metrics_ = step(state, batch)
+        q8_losses.append(float(metrics_["loss"]))
+    with torch.no_grad():
+        logits, _ = M.forward(state.params, cut, dims, batch["tokens"], remat="none")
+        q8_after = float(M.lm_loss(logits, batch["labels"], cut.vocab_size))
+    require(all(math.isfinite(x) for x in q8_losses + [q8_after]),
+            f"train: Q8Adam losses {q8_losses}, then {q8_after}")
+    log(f"train Q8Adam: {TRAIN_Q8_STEPS} steps, losses {q8_losses}, after {q8_after:.6f}")
+    del state, step, logits
+    torch.cuda.empty_cache()
+    return {"remat_exact": exact, "remat_gap": worst, "precision_gap": rel,
+            "q8_losses": q8_losses + [q8_after]}
+
+
+def check_driver(device) -> None:
+    """The fault-tolerant driver on the example's lm-100m preset: a run
+    with a failure injected at DRIVER_FAILURE_AT restores the last
+    checkpoint, replays, and ends with the uninterrupted run's
+    parameters, moments and monitor bit for bit.  Deterministic
+    algorithms: the embedding's backward adds with atomics otherwise."""
+    from examples.train_lm_sketch_torch import build
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            runs = []
+            for name, failure in (("uninterrupted", None), ("failed", DRIVER_FAILURE_AT)):
+                _, driver = build(DRIVER_PRESET, DRIVER_STEPS, DRIVER_BATCH, DRIVER_SEQ, device,
+                                  os.path.join(tmp, name), log_every=1)
+                if failure is not None:
+                    driver.inject_failure_at = {failure: SimulatedFailure("injected failure")}
+                driver.run(DRIVER_STEPS)
+                runs.append(driver)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ref_run, failed = runs
+    require(failed.restarts == 1 and failed.step == ref_run.step == DRIVER_STEPS,
+            f"driver: {failed.restarts} restarts, steps {failed.step} and {ref_run.step}")
+    restores = [e["step"] for e in failed.events if e["kind"] == "restore"]
+    leaves = list(zip(ptree.tree_leaves(ref_run.state), ptree.tree_leaves(failed.state)))
+    require(all(equal(a, b) for a, b in leaves),
+            "driver: the recovered run's state differs from the uninterrupted run's")
+    losses = [m["loss"] for m in ref_run.metrics_log]
+    require(len(losses) == DRIVER_STEPS
+            and all(m["loss"] == losses[m["step"]] for m in failed.metrics_log),
+            "driver: a loss of the recovered run (a replayed step's included) differs")
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"driver: losses {losses[0]} -> {losses[-1]}")
+    log(f"train driver ({DRIVER_PRESET}, {DRIVER_STEPS} steps of {DRIVER_BATCH} x {DRIVER_SEQ}, "
+        f"failure at {DRIVER_FAILURE_AT}, restored at {restores}): {len(leaves)} leaves "
+        f"(params, moments, monitor, step) equal the uninterrupted run's bit for bit; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {time.perf_counter() - t0:.1f} s for both runs")
+
+
+def phase_train(device, smi: str) -> dict:
+    """qwen2.5-3b at full width and depth through ``make_train_step``:
+    TRAIN_STEPS steps on one batch (path ``train``), then the gates of
+    the module docstring."""
+    t_phase = time.perf_counter()
+    cfg = configs.get(TRAIN_ARCH)
+    dims = compute_dims(cfg, tp=1)
+    batch = to_device(next(token_batches(1, TRAIN_TOKENS, cfg.vocab_size, seed=TRAIN_SEED)),
+                      device)
+    variants = check_train_variants(device, cfg, batch)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_adamw(constant(TRAIN_LR))
+    state, mparams = train.make_train_state(torch.Generator(device).manual_seed(TRAIN_SEED),
+                                            cfg, dims, opt, monitor_cfg=TRAIN_MONITOR,
+                                            device=device)
+    step = train.make_train_step(cfg, dims, opt, monitor_cfg=TRAIN_MONITOR,
+                                 monitor_params=mparams, remat="full",
+                                 compute_dtype=torch.bfloat16)
+    n_params = sum(x.numel() for x in ptree.tree_leaves(state.params))
+    losses, seconds = [], []
+    reset_counts()
+    for _ in range(TRAIN_STEPS):
+        dt, (state, out) = synced_s(lambda: step(state, batch))
+        losses.append(float(out["loss"]))
+        seconds.append(dt)
+    launches = read_counts("train", TRAIN_KERNELS, sampling_calls=TRAIN_STEPS)
+    per_level = TRAIN_STEPS * TRAIN_LEVELS
+    require(launches["fingerprint"] == launches["sketch_update"] == per_level,
+            f"train: fingerprint {launches['fingerprint']} and sketch_update "
+            f"{launches['sketch_update']} launches, predicted {per_level}")
+    require(all(n == 0 for name, n in launches.items() if name not in TRAIN_KERNELS),
+            f"train: unexpected launches {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        logits, _ = M.forward(state.params, cfg, dims, batch["tokens"], remat="none")
+        final = float(M.lm_loss(logits, batch["labels"], cfg.vocab_size))
+        del logits
+    require(all(math.isfinite(x) for x in losses + [final]) and final < losses[0],
+            f"train: loss {losses[0]} at step 0, {final} after {TRAIN_STEPS} steps")
+
+    with oracle_calls():
+        counters = torch.zeros_like(state.monitor.counters[0])
+        n = torch.zeros_like(state.monitor.n[0])
+        plain = ops.make_sjpc_update_fn(impl=registry.TORCH_REF)
+        for i in range(TRAIN_STEPS):
+            counters, n = mon.monitor_update_local(
+                TRAIN_MONITOR, mparams, counters, n, batch["tokens"],
+                torch.tensor(i, dtype=torch.int32, device=device), update_fn=plain,
+                impl=registry.TORCH_REF)
+        require(equal(state.monitor.counters[0], counters) and equal(state.monitor.n[0], n),
+                "train: the monitor's counters differ from the torch_ref twin's")
+        kernel_fn = ops.make_sjpc_update_fn()
+        monitor_s = [synced_s(lambda: mon.monitor_update_local(
+            TRAIN_MONITOR, mparams, counters, n, batch["tokens"], state.step,
+            update_fn=kernel_fn))[0] for _ in range(5)]
+    step_ms = float(np.median(seconds[1:])) * 1e3
+    log(f"train: {TRAIN_ARCH} ({n_params / 1e9:.3f} B f32 parameters, {cfg.num_layers} layers), "
+        f"AdamW, bf16, remat full, batch 1 x {TRAIN_TOKENS}: step ms (median of steps 2-"
+        f"{TRAIN_STEPS}) {step_ms:.1f}, first step {seconds[0] * 1e3:.1f}; tokens/s "
+        f"{TRAIN_TOKENS / step_ms * 1e3:.0f}; peak allocated {peak / 1e9:.2f} GB; loss "
+        f"{losses[0]:.4f} at step 0, {final:.4f} at step {TRAIN_STEPS} (per step {losses}); "
+        f"monitor update {float(np.median(monitor_s)) * 1e3:.1f} ms of a step; counters equal "
+        f"the torch_ref twin's; {smi}")
+    log_profile("one more train step", *profiled(lambda: step(state, batch), host_ops=False)[:3])
+    del state, step, opt
+    torch.cuda.empty_cache()
+    check_driver(device)
+    torch.cuda.empty_cache()
+    log(f"train phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "step_ms": step_ms, "peak": peak, **variants}
+
+
 def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
     """Kernel, plain-version and library times at the main path's shapes,
     with the bound of each; ``by_path`` holds each path's launches."""
@@ -3010,6 +3260,8 @@ def main() -> int:
         by_path[path] = res["launches"]
     log(f"serve_families phase: {time.perf_counter() - t_families:.1f} s")
     by_path["plugins"] = phase_plugins()["launches"]
+    torch.cuda.empty_cache()
+    by_path["train"] = phase_train(device, smi)["launches"]
 
     rows = phase_numbers(device, cfg, params, records, tenants, by_path, est_out)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -72,3 +72,47 @@ def model_params_from_numpy(tree, device=None):
     if isinstance(tree, (list, tuple)):
         return type(tree)(model_params_from_numpy(v, device) for v in tree)
     return torch.from_numpy(np.array(tree)).to(device)
+
+
+def _train_types() -> dict:
+    """The port's NamedTuples of a train state, by the JAX package's names
+    (its ``Q8State`` is local to ``make_q8adam``; its name is the same)."""
+    from .launch.train import TrainState
+    from .optim.adamw import AdamWState
+    from .optim.q8adam import Q8State, QTensor
+    from .sketchstream.monitor import MonitorState
+    return {cls.__name__: cls for cls in (TrainState, AdamWState, Q8State, QTensor,
+                                          MonitorState)}
+
+
+def _carry(tree, leaf_fn, types):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _carry(v, leaf_fn, types) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        cls = types.get(type(tree).__name__)
+        if cls is None or cls._fields != type(tree)._fields:
+            raise TypeError(f"no train-state type matches {type(tree).__name__}"
+                            f"{type(tree)._fields}")
+        return cls(*(_carry(v, leaf_fn, types) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_carry(v, leaf_fn, types) for v in tree)
+    return leaf_fn(tree)
+
+
+def train_state_from_numpy(tree, device=None):
+    """The JAX package's ``TrainState`` with numpy leaves (as
+    ``jax.tree_util.tree_map(np.asarray, state)`` gives it: AdamW or Q8
+    moments, a ``MonitorState`` or None) -> the port's ``TrainState`` of
+    tensors on ``device`` (None: the CUDA card), dtypes kept.  Every
+    NamedTuple becomes the port's type of the same name and fields, so
+    the leaves keep the JAX package's order."""
+    device = platform.resolve(device)
+    return _carry(tree, lambda x: torch.from_numpy(np.array(x)).to(device), _train_types())
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` -> the same tree with numpy leaves (on the
+    host), in the JAX package's leaf order."""
+    return _carry(state, lambda x: x.detach().cpu().numpy(), _train_types())

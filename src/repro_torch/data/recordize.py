@@ -15,17 +15,31 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.hashing import P31, addmod_p31, mulmod_p31, reduce_p31
+from ..core.hashing import P31, mulmod_p31, reduce_p31
 
 SHINGLE_BASE = 1_000_003
 _MASK32 = 0xFFFFFFFF
+
+
+def _powers(n: int, device) -> torch.Tensor:
+    """SHINGLE_BASE ** (n-1-j) mod p for j in 0..n-1 (int64)."""
+    pows, x = [], 1
+    for _ in range(n):
+        pows.append(x)
+        x = x * SHINGLE_BASE % P31
+    return torch.tensor(pows[::-1], dtype=torch.int64, device=device)
 
 
 def records_from_tokens(tokens, d: int) -> torch.Tensor:
     """tokens (B, S) integers -> records (B, d) int64 field values, on the
     tokens' device.  S need not divide by d; the tail tokens fold into the
     last span.  Token ids wrap to uint32 first, as the JAX package's
-    ``astype(uint32)`` does."""
+    ``astype(uint32)`` does.
+
+    The JAX package folds each span by Horner's rule, one token at a time.
+    Here a span is one weighted sum, sum_j v_j * base^(n-1-j) mod p, the
+    same field element: each product is reduced below p < 2^31 before the
+    sum, so the sum of up to 2^32 terms stays exact in int64."""
     tokens = torch.as_tensor(tokens)
     b, s = tokens.shape
     span = s // d
@@ -35,10 +49,8 @@ def records_from_tokens(tokens, d: int) -> torch.Tensor:
     for i in range(d):
         lo = i * span
         hi = (i + 1) * span if i < d - 1 else s
-        h = torch.zeros((b,), dtype=torch.int64, device=tokens.device)
-        for j in range(lo, hi):
-            h = addmod_p31(mulmod_p31(h, SHINGLE_BASE), vals[:, j])
-        cols.append(h)
+        terms = mulmod_p31(vals[:, lo:hi], _powers(hi - lo, tokens.device))
+        cols.append(reduce_p31(terms.sum(dim=1)))
     return torch.stack(cols, dim=1)
 
 

@@ -177,7 +177,18 @@ def flash_attention(q, k, v, *, causal=True, block_q=512, block_k=512, impl=None
     ``ValueError``: after ``min(block, length)``, Sq is a multiple of
     ``block_q`` and Skv of ``block_k``, and H a multiple of KV.  The plain
     version computes in those blocks; the kernel chooses its own tiles.
+
+    The op has no backward on either tier: with grad mode on, an input
+    that requires grad raises ``NotImplementedError`` rather than giving
+    an output whose gradient is silently cut (ROADMAP queue 1: the
+    flash-attention backward kernel).
     """
+    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
+                                       for x in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward: training above CHUNKED_THRESHOLD tokens "
+            "waits for the hand-written flash-attention backward kernel (dQ/dK/dV "
+            "recomputed from the saved log-sum-exp; ROADMAP queue 1)")
     device = _device(q, k, v)
     q, k, v = (torch.as_tensor(x).to(device).contiguous() for x in (q, k, v))
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:

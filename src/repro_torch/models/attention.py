@@ -146,15 +146,18 @@ CHUNKED_THRESHOLD = 8192
 
 
 def attention_block(params, x, dims: Dims, positions, *, causal=True, kv_override=None,
-                    rope=True, chunk: int = 2048, impl: str | None = None):
-    """Full prefill attention over x (B, S, d).  Returns (out, (k, v)).
+                    rope=True, chunk: int = 2048, probs_dtype=torch.float32,
+                    impl: str | None = None):
+    """Full train/prefill attention over x (B, S, d).  Returns (out, (k, v)).
 
     ``kv_override`` (B, S_src, d) is the memory the keys and values are
     projected from (cross-attention), at positions 0..S_src-1.  When
     either length exceeds :data:`CHUNKED_THRESHOLD` it runs
     ``ops.flash_attention`` with ``chunk`` as its q/kv tiles (``impl``
     names its implementation; None goes by the device); otherwise
-    :func:`full_attention`.
+    :func:`full_attention` with ``probs_dtype``.  The flash op keeps its
+    probabilities in float32 and has no backward: other ``probs_dtype``
+    there, or inputs that require grad, raise ``NotImplementedError``.
     """
     cfg = dims.cfg
     q = _project_q(params, x, positions, cfg.rope_theta, rope=rope)
@@ -163,10 +166,14 @@ def attention_block(params, x, dims: Dims, positions, *, causal=True, kv_overrid
         src.shape[1], dtype=torch.int32, device=src.device)[None].expand(src.shape[:2])
     k, v = _project_kv(params, src, kv_pos, cfg.rope_theta, rope=rope)
     if x.shape[1] > CHUNKED_THRESHOLD or src.shape[1] > CHUNKED_THRESHOLD:
+        if probs_dtype != torch.float32:
+            raise NotImplementedError(
+                f"probs_dtype {probs_dtype} above CHUNKED_THRESHOLD: the flash-attention "
+                f"kernels keep float32 probabilities")
         out = ops.flash_attention(q, k, v, causal=causal, block_q=chunk, block_k=chunk,
                                   impl=impl)
     else:
-        out = full_attention(q, k, v, causal=causal)
+        out = full_attention(q, k, v, causal=causal, probs_dtype=probs_dtype)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
 
 

@@ -58,12 +58,14 @@ def _ffn(params, x, dims: Dims, aux):
 
 def apply_layer(params, x, dims: Dims, spec, *, positions, causal=True, enc_mem=None,
                 aux=None, ssm_chunk: int = ssm.DEFAULT_CHUNK, attn_chunk: int = 2048,
-                impl: str | None = None):
-    """Full-sequence layer (prefill).  Returns (x, cache_out, aux).
+                probs_dtype=torch.float32, impl: str | None = None):
+    """Full-sequence layer (train / prefill).  Returns (x, cache_out, aux).
 
     cache_out carries whatever decode needs: this pass's attention K/V,
-    the mamba final states, the cross-attention memory K/V.  ``impl``
-    names the flash-attention op's implementation (None: by device).
+    the mamba final states, the cross-attention memory K/V.
+    ``probs_dtype`` is the attention probabilities' type (the softmax
+    itself is float32); ``impl`` names the flash-attention op's
+    implementation (None: by device).
     """
     kind, _ = spec
     cfg = dims.cfg
@@ -71,7 +73,8 @@ def apply_layer(params, x, dims: Dims, spec, *, positions, causal=True, enc_mem=
     h = rmsnorm(params["mixer_norm"], x, cfg.rms_eps)
     if kind == "A":
         out, (k, v) = attn.attention_block(params["attn"], h, dims, positions, causal=causal,
-                                           chunk=attn_chunk, impl=impl)
+                                           chunk=attn_chunk, probs_dtype=probs_dtype,
+                                           impl=impl)
         cache_out["k"], cache_out["v"] = k, v
     else:
         out, states = ssm.mamba_block(params["mamba"], h, dims, chunk=ssm_chunk)
@@ -81,7 +84,8 @@ def apply_layer(params, x, dims: Dims, spec, *, positions, causal=True, enc_mem=
         h = rmsnorm(params["cross_norm"], x, cfg.rms_eps)
         out, (mk, mv) = attn.attention_block(params["cross"], h, dims, positions,
                                              causal=False, kv_override=enc_mem,
-                                             chunk=attn_chunk, impl=impl)
+                                             chunk=attn_chunk, probs_dtype=probs_dtype,
+                                             impl=impl)
         cache_out["mk"], cache_out["mv"] = mk, mv
         x = x + out
     x, aux = _ffn(params, x, dims, aux)

@@ -12,23 +12,33 @@ encoder-decoder ``"encoder": {"layers": (stacked layer,), "norm"}``.
 Public entry points (cfg/dims describe the model):
 
     init_params(generator, cfg, dims, device=None) -> params
+    forward(params, cfg, dims, tokens, ...)        -> (logits, aux)     [train]
+    lm_loss(logits, labels, true_vocab)            -> scalar
     init_cache(cfg, dims, batch, max_len, ...)     -> Cache
     prefill(params, cfg, dims, tokens, ...)        -> (logits_last, Cache)
     decode_step(params, cfg, dims, token, cache)   -> (logits, Cache)
 
-``forward``, ``lm_loss`` and rematerialisation belong to the training
-slice (ROADMAP queue 1).
+Rematerialisation (``forward``'s ``remat``) wraps each layer period, the
+JAX package's scan body, in ``torch.utils.checkpoint``: ``"none"`` keeps
+every activation, ``"full"`` recomputes the period in the backward pass,
+``"dots"`` keeps the outputs of products without batch dimensions (the
+weight products) and recomputes the rest, as
+``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from .. import platform
+from ..tree import tree_flatten
 from . import blocks
 from .config import ArchConfig, Dims, _layer_list
-from .layers import dense_init, embed, init_embedding, init_rmsnorm, rmsnorm
+from .layers import (dense_init, embed, init_embedding, init_rmsnorm, mask_padded_vocab,
+                     rmsnorm)
 
 ENCODER_SPEC = ("A", False)        # every encoder layer: attention and a dense FFN
 
@@ -75,6 +85,15 @@ def _stack(trees: list):
 def _layer(tree, index: int):
     """The ``index``-th layer of a stacked tree (views, no copies)."""
     return _tree_map(lambda x: x[index], tree)
+
+
+def _unstack(tree, count: int) -> list:
+    """Every layer of a stacked tree, as views.  One ``unbind`` per leaf:
+    its backward stacks the layers' gradients once, where indexing would
+    add a zero-filled stack per layer."""
+    leaves, treedef = tree_flatten(tree)
+    per_leaf = [x.unbind(0) for x in leaves]
+    return [treedef.unflatten(layers[i] for layers in per_leaf) for i in range(count)]
 
 
 # ---------------------------------------------------------------------------
@@ -127,41 +146,146 @@ def _zero_aux(device):
             "moe_z_loss": torch.zeros((), dtype=torch.float32, device=device)}
 
 
-def _run_groups(params, cfg, dims, x, positions, *, causal, enc_mem=None, ssm_chunk=128,
-                collect_cache=False, attn_chunk=2048, impl=None):
-    """Every layer of every group in order.  Returns (x, aux, caches|None):
-    the MoE aux losses summed over layers (None without experts), caches
-    stacked per group as the parameters are."""
+REMAT_MODES = ("none", "full", "dots")
+
+
+def _no_batch_dot_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of products without batch dimensions, recompute everything else.
+    ``torch.matmul`` and ``torch.einsum`` give such a product (a weight
+    product, ``bsd,dhk->bshk``) as ``mm`` or as a ``bmm`` of one batch;
+    attention's ``bqkgh,bskh->bkgqs`` is a ``bmm`` over B x KV (which
+    counts as unbatched when B x KV is 1: that only keeps more)."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, remat: str):
+    """``fn`` run under the rematerialisation of mode ``remat``."""
+    if remat not in REMAT_MODES:
+        raise ValueError(remat)
+    if remat == "none":
+        return fn
+    context_fn = (functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                    _no_batch_dot_policy)
+                  if remat == "dots" else _ckpt.noop_context_fn)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+    return wrapped
+
+
+def _run_groups(params, cfg, dims, x, positions, *, causal, enc_mem=None, remat="none",
+                ssm_chunk=128, collect_cache=False, attn_chunk=2048,
+                probs_dtype=torch.float32, impl=None):
+    """Every layer of every group in order, each layer period under
+    ``remat``.  Returns (x, aux, caches|None): the MoE aux losses summed
+    over layers (None without experts), caches stacked per group as the
+    parameters are."""
     aux = _zero_aux(x.device) if cfg.num_experts > 0 else None
     caches = [] if collect_cache else None
     for (pspec, count), gparams in zip(layer_groups(cfg), params["groups"]):
-        outs = []
-        for layer in range(count):
-            pslice = _layer(gparams, layer)
-            layer_out = []
-            for i, spec in enumerate(pspec):
+
+        def body(x, aux, pslice, _pspec=pspec):
+            outs = []
+            for i, spec in enumerate(_pspec):
                 x, cache_out, aux = blocks.apply_layer(
                     pslice[i], x, dims, spec, positions=positions, causal=causal,
                     enc_mem=enc_mem, aux=aux, ssm_chunk=ssm_chunk, attn_chunk=attn_chunk,
-                    impl=impl)
-                layer_out.append(cache_out)
+                    probs_dtype=probs_dtype, impl=impl)
+                outs.append(cache_out)
+            return x, aux, (tuple(outs) if collect_cache else None)
+
+        body = _remat_wrap(body, remat)
+        outs = []
+        for pslice in _unstack(gparams, count):
+            x, aux, layer_out = body(x, aux, pslice)
             if collect_cache:
-                outs.append(tuple(layer_out))
+                outs.append(layer_out)
         if collect_cache:
             caches.append(_stack(outs))
     return x, aux, caches
 
 
-def _encode(params, cfg, dims, enc_feats, *, impl=None):
+def _encode(params, cfg, dims, enc_feats, *, remat="none", impl=None):
     """Encoder stack over precomputed frontend features (B, S_src, d):
-    non-causal self-attention layers, then the encoder's norm."""
+    non-causal self-attention layers, each under ``remat``, then the
+    encoder's norm."""
     x = enc_feats
     positions = _positions(x)
-    for layer in range(cfg.encoder_layers):
-        pslice = _layer(params["encoder"]["layers"], layer)
+
+    def body(x, pslice):
         x, _, _ = blocks.apply_layer(pslice[0], x, dims, ENCODER_SPEC, positions=positions,
                                      causal=False, impl=impl)
+        return x
+
+    body = _remat_wrap(body, remat)
+    for pslice in _unstack(params["encoder"]["layers"], cfg.encoder_layers):
+        x = body(x, pslice)
     return rmsnorm(params["encoder"]["norm"], x, cfg.rms_eps)
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / full-sequence)
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg: ArchConfig, dims: Dims, tokens, *, enc_feats=None,
+            compute_dtype=torch.bfloat16, remat: str = "full", ssm_chunk: int = 128,
+            attn_chunk: int = 2048, probs_dtype=torch.float32, impl: str | None = None):
+    """Teacher-forced full-sequence forward.  tokens (B, S) integers.
+
+    Returns (logits (B, S, vocab_padded) float32, aux): aux holds the MoE
+    load-balance and router z losses summed over layers (zeros without
+    experts).  float32 leaves are cast to ``compute_dtype`` here, so
+    gradients reach float32 parameters.  ``enc_feats`` (B, S_src, d) are
+    the encoder-decoder's frontend features; ``remat`` is one of
+    :data:`REMAT_MODES` (others raise ``ValueError``); ``probs_dtype`` the
+    attention probabilities' type; ``impl`` as for :func:`prefill`.
+    """
+    if remat not in REMAT_MODES:
+        raise ValueError(remat)
+    wp = _cast(params, compute_dtype)
+    device = wp["embed"].device
+    tokens = torch.as_tensor(tokens, device=device)
+    x = embed(wp["embed"], tokens)
+    enc_mem = None
+    if cfg.is_encdec:
+        if enc_feats is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: forward needs enc_feats")
+        enc_mem = _encode(wp, cfg, dims,
+                          torch.as_tensor(enc_feats, device=device).to(compute_dtype),
+                          remat=remat, impl=impl)
+    x, aux, _ = _run_groups(wp, cfg, dims, x, _positions(tokens), causal=True,
+                            enc_mem=enc_mem, remat=remat, ssm_chunk=ssm_chunk,
+                            attn_chunk=attn_chunk, probs_dtype=probs_dtype, impl=impl)
+    x = rmsnorm(wp["final_norm"], x, cfg.rms_eps)
+    lg = _logits(wp, cfg, x).to(torch.float32)
+    return lg, (aux if aux is not None else _zero_aux(device))
+
+
+def lm_loss(logits, labels, true_vocab: int, *, mask=None):
+    """Cross entropy over the *unpadded* vocabulary (padded columns
+    masked), the mean over tokens, or over ``mask``'s tokens."""
+    lg = mask_padded_vocab(logits, true_vocab)
+    lse = torch.logsumexp(lg, dim=-1)
+    labels = torch.as_tensor(labels, device=lg.device).to(torch.int64)
+    # The JAX package sums lg * one_hot(labels) over the vocabulary.  Each
+    # term but the label's is +-0 times a finite logit, so a gather of the
+    # label's logit is the same number bit for bit, without a (B, S, V)
+    # float32 one-hot (2.5 GB at 4,096 tokens of a 151,936 vocabulary).
+    # A label outside [0, V) has an all-zero one-hot: its term is 0.
+    valid = (labels >= 0) & (labels < lg.shape[-1])
+    num = torch.gather(lg, -1, torch.where(valid, labels, 0)[..., None])[..., 0]
+    nll = lse - torch.where(valid, num, 0.0)
+    if mask is None:
+        return nll.mean()
+    mask = torch.as_tensor(mask, device=lg.device).to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,10 @@ Two-stream mode (``contamination_estimate``): sketch two corpora with the
 SAME hash parameters; the join estimator (Eq. 7) gives their
 near-duplicate count.
 
-The JAX package's ``sketchstream/monitor.py``.  Its ``shard_map`` call
-site and the ``merge_every_step`` switch live in its training step, which
-comes with the training slice (ROADMAP queue 1).
+The JAX package's ``sketchstream/monitor.py``.  The training step
+(``launch/train.py``) runs the merged mode, one shard updated with the
+whole batch; the ``shard_map`` call site of the deferred mode waits for
+the multi-card slice (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ class SketchMonitorConfig:
     width: int = 1024
     depth: int = 3
     shards: int = 1            # data-parallel shard count (leading axis)
+    merge_every_step: bool = False
     seed: int = 0xD5
 
     @property
@@ -63,12 +65,19 @@ def init_monitor(cfg: SketchMonitorConfig, device=None) -> tuple[SJPCParams, Mon
 
 
 def monitor_update_local(cfg: SketchMonitorConfig, params: SJPCParams,
-                         local_counters, local_n, tokens, step):
+                         local_counters, local_n, tokens, step, *, update_fn=None,
+                         impl: str | None = None):
     """Shard-local update: local_counters (levels, t, w), tokens this
-    shard's (b, S) slice.  Returns (counters, n)."""
+    shard's (b, S) slice.  Returns (counters, n).
+
+    ``update_fn`` is ``sjpc.update``'s counter scatter (None: the plain
+    ``sketch.sketch_update``, as in the JAX package; the train step passes
+    ``kernels.ops.make_sjpc_update_fn()``, the ``sketch_update`` op);
+    ``impl`` names the implementation of the sampling and fingerprint
+    ops (None: by device)."""
     records = records_from_tokens(torch.as_tensor(tokens, device=local_counters.device), cfg.d)
     st = SJPCState(counters=local_counters, n=local_n, step=step)
-    st = sjpc.update(cfg.sjpc, params, st, records)
+    st = sjpc.update(cfg.sjpc, params, st, records, update_fn=update_fn, impl=impl)
     return st.counters, st.n
 
 

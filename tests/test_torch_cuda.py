@@ -835,3 +835,59 @@ def test_ssm_prefill_and_decode_on_the_card_equal_the_cpu(cuda, arch):
     assert float((lg24 - lg).abs().max()) <= 1e-4 * float(lg.abs().max())
     mamba = [c for g in cache.groups for c in g if "mamba" in c][0]["mamba"]
     assert mamba["ssm"].dtype == torch.float32 and bool(mamba["ssm"].abs().sum() > 0)
+
+
+def _tiny_train(device, impl=None):
+    """A tiny LM's train step on ``device`` with the SJPC monitor; the
+    state's parameters drawn on the CPU, so both devices start alike."""
+    from repro_torch.launch import train
+    from repro_torch.models.config import ArchConfig, compute_dims
+    from repro_torch.optim import make_adamw
+    from repro_torch.optim.schedules import constant
+    from repro_torch.sketchstream.monitor import SketchMonitorConfig, init_monitor
+    from repro_torch.tree import tree_map
+
+    cfg = ArchConfig(name="tiny", family="dense", num_layers=2, d_model=32, num_heads=2,
+                     num_kv_heads=1, d_ff=64, vocab_size=128, head_dim=16)
+    dims = compute_dims(cfg, tp=1)
+    mcfg = SketchMonitorConfig(d=6, s=3, width=256, depth=2)
+    opt = make_adamw(constant(5e-3))
+    state, _ = train.make_train_state(torch.Generator().manual_seed(0), cfg, dims, opt,
+                                      monitor_cfg=mcfg, device="cpu")
+    state = tree_map(lambda x: x.to(device), state)
+    mparams, _ = init_monitor(mcfg, device=device)
+    step = train.make_train_step(cfg, dims, opt, monitor_cfg=mcfg, monitor_params=mparams,
+                                 remat="full", compute_dtype=torch.float32, impl=impl)
+    return state, step
+
+
+def test_train_step_monitor_on_the_card_equals_its_plain_twin(cuda):
+    """One train step on the card: the monitor's counters (the
+    sample_weights, fingerprint and sketch_update kernels) equal a
+    torch_ref twin's bit for bit, and its loss the CPU step's."""
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 128, size=(4, 49), dtype=np.int32)
+    toks[1] = toks[0]
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    launches = (ksw.launches, kfp.launches)
+    state, step = _tiny_train(cuda)
+    got, metrics = step(state, {k: torch.from_numpy(v.copy()).to(cuda) for k, v in batch.items()})
+    assert (ksw.launches - launches[0], kfp.launches - launches[1]) == (1, 4)
+    twin_state, twin_step = _tiny_train(cuda, impl="torch_ref")
+    want, _ = twin_step(twin_state, batch)
+    assert torch.equal(got.monitor.counters, want.monitor.counters)
+    assert torch.equal(got.monitor.n, want.monitor.n)
+    cpu_state, cpu_step = _tiny_train("cpu")
+    _, cpu_metrics = cpu_step(cpu_state, batch)
+    assert abs(float(metrics["loss"]) - float(cpu_metrics["loss"])) <= 1e-5
+    assert int(got.step) == 1 and got.monitor.counters.device.type == "cuda"
+
+
+def test_flash_attention_kernel_tier_raises_under_grad(cuda):
+    from repro_torch.kernels import ops
+    q = torch.randn(1, 128, 2, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 128, 1, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.flash_attention(q, k, k)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, k).shape == q.shape
