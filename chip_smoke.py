@@ -87,6 +87,17 @@ w=1024, t=3):
   three Q8Adam steps; and the fault-tolerant driver on the example's
   lm-100m preset, a run with a failure at step 17 against an
   uninterrupted one, bit for bit;
+* training above CHUNKED_THRESHOLD (``train_long`` phase, path
+  ``train_long``): the same model and step on one batch of 1 x 10,240
+  tokens for 8 steps, every layer's attention through the bf16 flash
+  forward kernel (twice a step under remat full) and the flash backward
+  kernel (``csrc/flash_attention_bwd.cu``, once a step); launches and
+  dispatches as predicted, the loss falling, the monitor against its plain
+  twin; at 4 of 36 layers and the same tokens every gradient leaf of the
+  kernel step against the ``torch_ref`` step in f32 and bf16, bf16
+  probabilities against f32, remat none/full/dots bit for bit; step ms,
+  tokens/s, peak GB, the idle share and the backward's ms in a profiled
+  step;
 * the plugin kinds (``plugins`` phase): ``examples/plugins_torch`` loaded
   through ``load_plugins``, a service of 16 ipf, 16 theta_kmv and 16 SJPC
   tenants of the paper's group (4,096 records each per epoch, 6 epochs,
@@ -101,7 +112,10 @@ which launches no kernel, is held against its ``estimate_ref``.  The flash
 kernel agrees with its plain version within 2e-5 in f32 (with q scaled 8x,
 where f32's rounding of the scores moves the plain version itself that far,
 with a float64 answer instead), and in bf16 within one bf16 ulp of the
-plain value plus 2e-5 (and 2e-2 anywhere); the other kernels bit for bit.  The serve phase also holds the prefill's K/V
+plain value plus 2e-5 (and 2e-2 anywhere); the flash backward's gradients
+lie within 4x (f32) or 1.25x (bf16) of the plain path's distance to the
+float64 gradient, and two of its calls agree bit for bit; the other
+kernels bit for bit.  The serve phase also holds the prefill's K/V
 cache of every layer against the plain path's, and the request monitor's
 fingerprints and counters against the plain versions; the bf16 prefill's
 last-token logits are no further from the f32 prefill's than the plain
@@ -163,6 +177,7 @@ from repro_torch.estimators import uncertainty  # noqa: E402
 from repro_torch.kernels import _build, ops, ref, registry  # noqa: E402
 from repro_torch.kernels import fingerprint as kfp  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as kfab  # noqa: E402
 from repro_torch.kernels import fused_ingest as kfi  # noqa: E402
 from repro_torch.kernels import fused_pairs as kpairs  # noqa: E402
 from repro_torch.kernels import fused_query as kfq  # noqa: E402
@@ -362,9 +377,39 @@ DRIVER_PRESET = "100m"
 DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS = 8, 1024, 30
 DRIVER_FAILURE_AT = 17
 
+# The train_long phase: the train phase's model, optimizer, compute dtype,
+# remat and monitor on one batch of 1 x 10,240 tokens (the serve prompts'
+# length, a multiple of the 2,048 attention chunk), above CHUNKED_THRESHOLD:
+# every layer's attention is the bf16 flash kernel forward (twice a step
+# under remat full: the forward and its recompute) and the flash backward
+# kernel (once).  Its gates at TRAIN_CHECK_LAYERS: each gradient leaf of
+# the kernel step against the torch_ref step, relative to the leaf's max
+# |x| (f32: the kernels sum in their own order, 2e-5 in attention's
+# output, carried through four layers; bf16: activations rounded to bf16
+# after each product, where one bf16 ulp, 2^-8, of attention's output
+# moves a path's roundings downstream), bf16 probs_dtype against f32
+# (the step loss, PRECISION_RTOL), remat none/full/dots bit for bit.
+TRAIN_LONG_TOKENS = SERVE_PROMPT
+# Depth cut from 36 to 32 layers: at 36, 1 x 10,240 tokens peaked at 76.12
+# GB allocated on an H100 80GB (PERF.md), at the card's edge once the
+# earlier phases have fragmented its memory; a layer holds 1.2 GB of f32
+# parameters, gradients and AdamW moments.  Width, tokens and dtype are
+# the model's.
+TRAIN_LONG_LAYERS = 32
+LONG_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# The backward grid: each gradient's max distance from the float64
+# gradient within this multiple of the plain path's (the plain version on
+# its own out and lse), plus GRAD_FLOOR of the largest gradient.  f32: the
+# kernel adds each product over its tile walk one FMA at a time, where
+# cuBLAS blocks its sums; bf16: both round the same f32 values to bf16.
+GRAD_MULT = {torch.float32: 4.0, torch.bfloat16: 1.25}
+GRAD_FLOOR = 2e-6
+
 KERNELS = {"fused_ingest": kfi, "sample_weights": ksw, "fingerprint": kfp,
            "fused_query": kfq, "fused_pairs": kpairs, "sketch_update": ksu,
-           "sketch_moments": ksm, "flash_attention": kfa}
+           "sketch_moments": ksm, "flash_attention": kfa, "flash_attention_bwd": kfab}
+# Kernels of the model paths alone (no SJPC path launches them).
+MODEL_KERNELS = ("flash_attention", "flash_attention_bwd")
 # Every launch count: (module, attribute, the op whose dispatches it counts).
 # The flash_attention op has two kernels, f32 (split operands) and bf16.
 COUNTS = {name: (module, "launches", name) for name, module in KERNELS.items()}
@@ -381,7 +426,10 @@ REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:87",
             "fused_query": "src/repro/kernels/fused_query.py:54",
             "fused_pairs": "src/repro/kernels/fused_pairs.py:85",
             "sketch_update": "src/repro/kernels/sketch_update.py:60",
-            "sketch_moments": "src/repro/kernels/sketch_moments.py:34"}
+            "sketch_moments": "src/repro/kernels/sketch_moments.py:34",
+            "flash_attention_bwd": "src/repro/models/attention.py:104 chunked_attention "
+                                   "(XLA's gradient through jax.value_and_grad, "
+                                   "src/repro/launch/train.py:103; no Pallas kernel)"}
 # Kernels that no path of either package calls: their launches are this
 # script's own cross-check, which the row's launches_by_path says.
 CROSS_CHECK_ONLY = {"sketch_moments": "all this script's F2 cross-check against "
@@ -641,6 +689,7 @@ def phase_kernels(device) -> None:
     n_checks += check_sketch_moments_grid(rng, device)
     log(f"kernels: {n_checks} kernel-vs-plain checks bit-exact")
     check_flash_grid(rng, device)
+    check_flash_bwd_grid(rng, device)
 
 
 def attention_case(rng, device, b, sq, skv, h, kv, hd, dtype=torch.float32):
@@ -755,6 +804,89 @@ def check_flash_grid(rng, device) -> None:
         f"err {errs[torch.float32]:.3g} (f32, limit {FLASH_F32_TOL}) and "
         f"{errs[torch.bfloat16]:.3g} (bf16, limit one bf16 ulp + {FLASH_F32_TOL}, cap "
         f"{FLASH_BF16_TOL})")
+
+
+def exact_attention_grads(q, k, v, dout, causal: bool):
+    """dq, dk, dv of softmax attention in float64 by autograd (KV heads
+    repeated, so their gradients sum over each group; causal masking top-
+    left aligned): the exact gradients at the inputs, up to float64
+    rounding."""
+    b, sq, h, hd = q.shape
+    leaves = [x.double().requires_grad_(True) for x in (q, k, v)]
+    qd, kd, vd = leaves
+    kr, vr = (x.repeat_interleave(h // k.shape[2], 2) for x in (kd, vd))
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kr) / math.sqrt(hd)
+    if causal:
+        above = torch.ones(sq, k.shape[1], dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(above, -math.inf)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vr)
+    return torch.autograd.grad(out, leaves, dout.double())
+
+
+def check_flash_bwd_grid(rng, device) -> None:
+    """The flash-attention backward kernel against its plain version, each
+    path end to end (its own forward's out and lse, then its backward), on
+    the forward's grid: every head dim, GQA groups 1, 2 and 8, single rows,
+    ragged 64-row and 64-key tiles with Sq < Skv and Sq > Skv, causal or
+    not, f32 and bf16 inputs, probs_dtype f32 and bf16.  Each gradient's
+    max distance from the float64 gradient is within GRAD_MULT of the plain
+    path's (plus GRAD_FLOOR of the case's largest gradient).  Two calls of
+    the kernel give the same bits; the forward's out with the lse is its
+    out without, bit for bit; its lse is the plain version's within
+    FLASH_F32_TOL relative (to 1 at least); with bf16 probabilities its
+    out is within 2^-8 of max |v| of the plain version's (each path rounds
+    P at its own running max) plus, in bf16, one ulp of the plain value."""
+    lengths = ((1, 1), (63, 129), (129, 63), (200, 200), (200, 1000), (1000, 200))
+    cases = [((2, sq, skv, 8, (8, 4, 1)[(i + hd // 16) % 3], hd), dtype, probs, causal)
+             for dtype in (torch.float32, torch.bfloat16)
+             for probs in (torch.float32, torch.bfloat16)
+             for hd in kfa.HEAD_DIMS for i, (sq, skv) in enumerate(lengths)
+             for causal in (True, False)]
+    worst = {}      # (dtype, probs) -> the largest kernel/plain distance ratio
+    t0 = time.perf_counter()
+    for shape, dtype, probs, causal in cases:
+        what = f"flash_attention_bwd {shape} {dtype} probs {probs} causal={causal}"
+        q, k, v = attention_case(rng, device, *shape, dtype=dtype)
+        dout = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(device, dtype)
+        sq, skv = shape[1], shape[2]
+        out, lse = kfa.flash_attention(q, k, v, causal=causal, probs_dtype=probs,
+                                       return_lse=True)
+        require(equal(out, kfa.flash_attention(q, k, v, causal=causal, probs_dtype=probs)),
+                f"{what}: the forward's out with lse differs from its out without")
+        p_out, p_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal, block_q=sq,
+                                                   block_k=skv, probs_dtype=probs)
+        lse_err = float(((lse - p_lse).abs() / p_lse.abs().clamp_min(1)).max())
+        require(lse_err <= FLASH_F32_TOL, f"{what}: lse {lse_err} from the plain version's")
+        if probs == torch.bfloat16:
+            limit = 2.0 ** -8 * float(v.float().abs().max()) + FLASH_F32_TOL
+            diff = (out.float() - p_out.float()).abs()
+            if dtype == torch.bfloat16:
+                diff = diff - (flash_limit(p_out) - FLASH_F32_TOL)
+            require(float(diff.max()) <= limit,
+                    f"{what}: forward {float(diff.max())} beyond {limit} of the plain version")
+        got = kfab.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, probs_dtype=probs)
+        again = kfab.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                         probs_dtype=probs)
+        require(all(equal(a, b) for a, b in zip(got, again)),
+                f"{what}: two calls on the same inputs differ")
+        plain = ref.flash_attention_bwd_ref(q, k, v, p_out, p_lse, dout, causal=causal,
+                                            block_q=sq, block_k=skv, probs_dtype=probs)
+        exact = exact_attention_grads(q, k, v, dout, causal)
+        floor = GRAD_FLOOR * max(float(x.abs().max()) for x in exact)
+        for name, g, p, x in zip(("dq", "dk", "dv"), got, plain, exact):
+            require(g.dtype == dtype and g.shape == x.shape, f"{what}: {name} dtype/shape")
+            e_kernel = float((g.double() - x).abs().max())
+            e_plain = float((p.double() - x).abs().max())
+            require(e_kernel <= GRAD_MULT[dtype] * e_plain + floor,
+                    f"{what}: {name} {e_kernel:.3g} from the float64 gradient, plain path "
+                    f"{e_plain:.3g} (limit {GRAD_MULT[dtype]} x + {floor:.3g})")
+            key = (str(dtype).split(".")[1], str(probs).split(".")[1])
+            worst[key] = max(worst.get(key, 0.0), e_kernel / max(e_plain, floor))
+    log(f"kernels: {len(cases)} flash_attention_bwd checks (each dq, dk, dv against the float64 "
+        f"gradient, two calls bit for bit, the forward's lse and lse-less out) in "
+        f"{time.perf_counter() - t0:.1f} s; largest kernel/plain distance ratio by (input, "
+        f"probs) dtype: {worst} (limits {GRAD_MULT[torch.float32]} f32, "
+        f"{GRAD_MULT[torch.bfloat16]} bf16)")
 
 
 def check_sample_weights_grid(device) -> int:
@@ -1190,7 +1322,7 @@ def serve_prompts(vocab: int) -> np.ndarray:
     return prompts
 
 
-def profiled(fn, host_ops: bool = True):
+def profiled(fn, host_ops: bool = True, kernel_sums: dict | None = None):
     """``fn()`` under ``torch.profiler``: (host seconds from a synchronised
     start to a synchronised end, device seconds summed over its kernels,
     the five kernels with the most device time as (name, ms), the result,
@@ -1198,7 +1330,8 @@ def profiled(fn, host_ops: bool = True):
     host seconds is the card's busy share.  ``host_ops=False`` records the
     card's activity alone, which is all these numbers read, and spares the
     profiler the processing of every host op of a call that makes
-    thousands of launches."""
+    thousands of launches.  ``kernel_sums`` (name -> 0.0) gets the device
+    milliseconds of the kernels whose names contain each key."""
     activities = [torch.profiler.ProfilerActivity.CUDA]
     if host_ops:
         activities.append(torch.profiler.ProfilerActivity.CPU)
@@ -1208,6 +1341,8 @@ def profiled(fn, host_ops: bool = True):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    for name in kernel_sums or {}:
+        kernel_sums[name] = sum(e.self_device_time_total for e in kernels if name in e.key) / 1e3
     top = sorted(((e.key[:60], e.self_device_time_total / 1e3) for e in kernels),
                  key=lambda t: -t[1])[:5]
     dtoh = sum(1 for e in prof.events() if "DtoH" in e.name or "Device -> Pageable" in e.name)
@@ -1912,7 +2047,91 @@ def flash_rows(device, by_path, flush) -> list[dict]:
     row.update({"bf16_ms": tc["ms"], "bf16_bound_ms": tc["bound_ms"],
                 "bf16_library_ms": tc["library_ms"], "bf16_max_abs_err": tc["max_abs_err"],
                 "tc_launches": tc["launches"], "bf16_tflops": tc["tflops"]})
-    return [row, tc]
+    return [row, tc, flash_bwd_row(device, by_path, flush)]
+
+
+def flash_bwd_row(device, by_path, flush) -> dict:
+    """The flash backward at the train_long layer shape (1, 10,240, 16
+    heads over 2, hd 128, causal): the bf16 instantiation's row (the
+    train_long path's dtype), the f32 one's numbers as its f32_* fields.
+    Useful work 10 * hd flops per visible pair (five products); bound on
+    the bf16 tensor cores' rate in bf16 and the CUDA cores' f32 rate in
+    f32.  The library: scaled_dot_product_attention(is_causal,
+    enable_gqa) forward and backward minus its forward, on the backend it
+    picks."""
+    rng = np.random.default_rng(TRAIN_SEED + 1)
+    shape = (1, TRAIN_LONG_TOKENS, TRAIN_LONG_TOKENS, 16, 2, 128)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attention_case(rng, device, *shape, dtype=dtype)
+        dout = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(device, dtype)
+        o, lse = kfa.flash_attention(q, k, v, causal=True, return_lse=True)
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+        leaves = [x.requires_grad_(True) for x in (qt, kt, vt)]
+
+        def kernel():
+            return kfab.flash_attention_bwd(q, k, v, o, lse, dout, causal=True)
+
+        def plain():
+            return ref.flash_attention_bwd_ref(q, k, v, o, lse, dout, causal=True,
+                                               block_q=SERVE_CHUNK, block_k=SERVE_CHUNK)
+
+        def library_fwd():
+            return torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                                    enable_gqa=True)
+
+        def library():
+            return torch.autograd.grad(library_fwd(), leaves, dot)
+
+        p1, _ = device_ms(plain, 2, flush)
+        k1, _ = device_ms(kernel, 3, flush)
+        k2, _ = device_ms(kernel, 3, flush)
+        p2, _ = device_ms(plain, 2, flush)
+        lib_both = device_ms(library, 3, flush)[0]
+        lib_fwd = device_ms(library_fwd, 3, flush)[0]
+        got, want = kernel(), plain()
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        rel = max(float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                  for g, w in zip(got, want))
+        require(rel <= (FLASH_F32_TOL if dtype == torch.float32 else 1e-2),
+                f"flash_attention_bwd {dtype}: {rel:.3e} of a gradient's max from the plain "
+                f"version")
+        lib_grads = library()
+        lib_rel = max(float((g.transpose(1, 2).float() - w.float()).abs().max()
+                            / w.float().abs().max()) for g, w in zip(lib_grads, want))
+        del got, want, lib_grads
+        nbytes, fwd_flops = attention_work(q, k, causal=True)
+        flops = fwd_flops // 4 * 10
+        # q, k, v, out and dout read, dq, dk and dv written, lse read
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
+        rate = BF16_TENSOR_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        b_ms, b_by = bound_ms(nbytes, flops, rate)
+        ms = min(k1, k2)
+        tflops = flops / (ms / 1e3) / 1e12
+        log(f"time flash_attention_bwd {dtype} {shape}: kernel {k1:.3f}/{k2:.3f} ms, plain "
+            f"{p1:.3f}/{p2:.3f} ms, library (scaled_dot_product_attention forward+backward "
+            f"{lib_both:.3f} ms minus forward {lib_fwd:.3f} ms) {lib_both - lib_fwd:.3f} ms "
+            f"(its gradients {lib_rel:.3g} of a max from the plain version's), bound "
+            f"{b_ms:.3f} ms ({b_by}: {nbytes} B, {flops} flops at {rate / 1e12:.1f} TFLOP/s); "
+            f"kernel at {tflops:.2f} TFLOP/s of useful work; max abs err {err:.3g} "
+            f"({rel:.3g} of a gradient's max)")
+        out[dtype] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_both - lib_fwd, "max_abs_err": err, "tflops": tflops,
+                      "library_rel_err": lib_rel}
+        del q, k, v, dout, o, lse, qt, kt, vt, dot, leaves
+        torch.cuda.empty_cache()
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": f"src/repro_torch/kernels/csrc/{SOURCES['flash_attention_bwd']}",
+           "replaces": REPLACES["flash_attention_bwd"],
+           "launches": sum(counts["flash_attention_bwd"] for counts in by_path.values()),
+           "launches_by_path": {path: counts["flash_attention_bwd"]
+                                for path, counts in by_path.items()},
+           **out[torch.bfloat16],
+           "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True) forward "
+                      "and backward minus its forward, same dtype, the backend it picks",
+           "shape": list(shape)}
+    row.update({f"f32_{key}": val for key, val in out[torch.float32].items()})
+    return row
 
 
 def pairs_work(items, valid):
@@ -2805,7 +3024,8 @@ def phase_accuracy(device, smi: str) -> dict[str, int]:
     return launches
 
 
-def train_loss_and_grads(params, cfg, dims, batch, remat: str, dtype):
+def train_loss_and_grads(params, cfg, dims, batch, remat: str, dtype, *,
+                         probs_dtype=torch.float32, impl=None):
     """(loss, gradients of every leaf in leaf order) of one forward and
     backward."""
     leaves = ptree.tree_leaves(params)
@@ -2813,7 +3033,7 @@ def train_loss_and_grads(params, cfg, dims, batch, remat: str, dtype):
         p.requires_grad_(True)
     try:
         logits, _ = M.forward(params, cfg, dims, batch["tokens"], compute_dtype=dtype,
-                              remat=remat)
+                              remat=remat, probs_dtype=probs_dtype, impl=impl)
         loss = M.lm_loss(logits, batch["labels"], cfg.vocab_size)
         del logits
         grads = torch.autograd.grad(loss, leaves)
@@ -3006,6 +3226,171 @@ def phase_train(device, smi: str) -> dict:
     torch.cuda.empty_cache()
     log(f"train phase: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "step_ms": step_ms, "peak": peak, **variants}
+
+
+def leaf_gap(got, want) -> float:
+    """The largest gap of two gradient lists, each leaf's relative to
+    its max |x|."""
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def check_train_long_variants(device, cfg, batch) -> dict:
+    """The train_long gates at TRAIN_CHECK_LAYERS of depth and the full
+    10,240 tokens: the kernel step's loss and every gradient leaf against
+    the torch_ref step's (flash forward and backward on the plain
+    versions), in f32 and in bf16, within LONG_GRAD_RTOL; bf16
+    probabilities against f32 (the step loss within PRECISION_RTOL); remat
+    none, full and dots bit for bit under deterministic algorithms."""
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS)
+    dims = compute_dims(cut, tp=1)
+    params = M.init_params(torch.Generator(device).manual_seed(TRAIN_SEED), cut, dims,
+                           device=device)
+    out = {}
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        launches = kfab.launches
+        loss, grads = train_loss_and_grads(params, cut, dims, batch, "full", dtype)
+        require(kfab.launches - launches == TRAIN_CHECK_LAYERS,
+                f"train_long {dtype}: {kfab.launches - launches} backward launches")
+        with oracle_calls():
+            want_loss, want = train_loss_and_grads(params, cut, dims, batch, "full", dtype,
+                                                   impl=registry.TORCH_REF)
+        gap = leaf_gap(grads, want)
+        loss_gap = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+        require(all(bool(torch.isfinite(g).all()) for g in grads),
+                f"train_long {dtype}: a gradient is not finite")
+        require(gap <= LONG_GRAD_RTOL[dtype] and loss_gap <= LONG_GRAD_RTOL[dtype],
+                f"train_long {dtype}: kernel step {gap:.3e} of a leaf's max |x| from the "
+                f"torch_ref step's (loss {loss_gap:.3e}; limit {LONG_GRAD_RTOL[dtype]})")
+        out[f"kernel_vs_plain_{dtype}"] = gap
+        out[f"loss_{dtype}"] = float(loss)
+        log(f"train_long at {TRAIN_CHECK_LAYERS} of {cfg.num_layers} layers, {dtype}: loss "
+            f"{float(loss):.6f} (torch_ref {float(want_loss):.6f}); every gradient leaf within "
+            f"{gap:.3e} of its max |x| of the torch_ref step's (limit {LONG_GRAD_RTOL[dtype]})")
+        del grads, want
+        torch.cuda.empty_cache()
+    probs_loss, _ = train_loss_and_grads(params, cut, dims, batch, "full", torch.bfloat16,
+                                         probs_dtype=torch.bfloat16)
+    rel = abs(float(probs_loss) - out["loss_torch.bfloat16"]) / out["loss_torch.bfloat16"]
+    require(rel <= PRECISION_RTOL, f"train_long: bf16 probs_dtype loss {float(probs_loss)} is "
+                                   f"{rel:.3e} from f32 probabilities'")
+    torch.use_deterministic_algorithms(True)
+    try:
+        want_loss, want = train_loss_and_grads(params, cut, dims, batch, "none", torch.bfloat16)
+        exact = True
+        for remat in ("full", "dots"):
+            loss, grads = train_loss_and_grads(params, cut, dims, batch, remat, torch.bfloat16)
+            exact &= equal(loss, want_loss) and all(equal(g, w) for g, w in zip(grads, want))
+            del grads
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(exact, "train_long: remat none/full/dots differ")
+    log(f"train_long at {TRAIN_CHECK_LAYERS} layers: bf16 probs_dtype step loss "
+        f"{float(probs_loss):.6f}, {rel:.3e} from f32 probabilities' (gate {PRECISION_RTOL}); "
+        f"remat none/full/dots bit for bit; {time.perf_counter() - t0:.1f} s for the checks")
+    del params, want
+    torch.cuda.empty_cache()
+    return {**out, "probs_gap": rel}
+
+
+# The flash backward's kernels by name: f32 (CUDA cores), bf16 (mma.sync),
+# and D.
+BWD_KERNEL_NAMES = ("dkdv_kernel", "dq_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
+                    "dot_rows_kernel")
+
+
+def phase_train_long(device, smi: str) -> dict:
+    """qwen2.5-3b through ``make_train_step`` above CHUNKED_THRESHOLD
+    (path ``train_long``): TRAIN_STEPS steps of one 1 x TRAIN_LONG_TOKENS
+    batch, every layer's attention through the bf16 flash kernels, forward
+    and backward; then the gates of check_train_long_variants."""
+    t_phase = time.perf_counter()
+    cfg = configs.get(TRAIN_ARCH)
+    if TRAIN_LONG_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, num_layers=TRAIN_LONG_LAYERS)
+    dims = compute_dims(cfg, tp=1)
+    batch = to_device(next(token_batches(1, TRAIN_LONG_TOKENS, cfg.vocab_size,
+                                         seed=TRAIN_SEED)), device)
+    variants = check_train_long_variants(device, cfg, batch)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_adamw(constant(TRAIN_LR))
+    state, mparams = train.make_train_state(torch.Generator(device).manual_seed(TRAIN_SEED),
+                                            cfg, dims, opt, monitor_cfg=TRAIN_MONITOR,
+                                            device=device)
+    step = train.make_train_step(cfg, dims, opt, monitor_cfg=TRAIN_MONITOR,
+                                 monitor_params=mparams, remat="full",
+                                 compute_dtype=torch.bfloat16)
+    losses, seconds = [], []
+    reset_counts()
+    for _ in range(TRAIN_STEPS):
+        dt, (state, out) = synced_s(lambda: step(state, batch))
+        losses.append(float(out["loss"]))
+        seconds.append(dt)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts("train_long", TRAIN_KERNELS + ("flash_attention_tc",
+                                                          "flash_attention_bwd"),
+                           sampling_calls=TRAIN_STEPS)
+    _, dispatch = current_counts()
+    by_op = {}
+    for labels, n in dispatch.items():
+        by_op[dict(labels)["kernel"]] = by_op.get(dict(labels)["kernel"], 0) + n
+    layers = cfg.num_layers
+    require(launches["flash_attention_tc"] == by_op.get("flash_attention") == 2 * layers
+            * TRAIN_STEPS and launches["flash_attention"] == 0,
+            f"train_long: {launches['flash_attention_tc']} bf16 and "
+            f"{launches['flash_attention']} f32 forward launches, "
+            f"{by_op.get('flash_attention')} dispatches; predicted {2 * layers * TRAIN_STEPS} "
+            f"bf16 (forward and recompute per layer per step)")
+    require(launches["flash_attention_bwd"] == by_op.get("flash_attention_bwd")
+            == layers * TRAIN_STEPS,
+            f"train_long: {launches['flash_attention_bwd']} backward launches, "
+            f"{by_op.get('flash_attention_bwd')} dispatches; predicted {layers * TRAIN_STEPS}")
+    per_level = TRAIN_STEPS * TRAIN_LEVELS
+    require(launches["fingerprint"] == launches["sketch_update"] == per_level,
+            f"train_long: fingerprint {launches['fingerprint']} and sketch_update "
+            f"{launches['sketch_update']} launches, predicted {per_level}")
+    with torch.no_grad():
+        logits, _ = M.forward(state.params, cfg, dims, batch["tokens"], remat="none")
+        final = float(M.lm_loss(logits, batch["labels"], cfg.vocab_size))
+        del logits
+    require(all(math.isfinite(x) for x in losses + [final]) and final < losses[0],
+            f"train_long: loss {losses[0]} at step 0, {final} after {TRAIN_STEPS} steps")
+    with oracle_calls():
+        counters = torch.zeros_like(state.monitor.counters[0])
+        n = torch.zeros_like(state.monitor.n[0])
+        plain = ops.make_sjpc_update_fn(impl=registry.TORCH_REF)
+        for i in range(TRAIN_STEPS):
+            counters, n = mon.monitor_update_local(
+                TRAIN_MONITOR, mparams, counters, n, batch["tokens"],
+                torch.tensor(i, dtype=torch.int32, device=device), update_fn=plain,
+                impl=registry.TORCH_REF)
+        require(equal(state.monitor.counters[0], counters) and equal(state.monitor.n[0], n),
+                "train_long: the monitor's counters differ from the torch_ref twin's")
+    step_ms = float(np.median(seconds[1:])) * 1e3
+    bwd_ms = dict.fromkeys(BWD_KERNEL_NAMES, 0.0)
+    p_seconds, busy, top, _, _ = profiled(lambda: step(state, batch), host_ops=False,
+                                          kernel_sums=bwd_ms)
+    bwd_total = sum(bwd_ms.values())
+    depth = (f"{layers} layers" if TRAIN_LONG_LAYERS is None
+             else f"{layers} of {configs.get(TRAIN_ARCH).num_layers} layers (depth cut)")
+    log(f"train_long: {TRAIN_ARCH} ({depth}), AdamW, bf16, remat full, batch 1 x "
+        f"{TRAIN_LONG_TOKENS}: step ms (median of steps 2-{TRAIN_STEPS}) {step_ms:.1f}, first "
+        f"step {seconds[0] * 1e3:.1f}; tokens/s {TRAIN_LONG_TOKENS / step_ms * 1e3:.0f}; peak "
+        f"allocated {peak / 1e9:.2f} GB; loss {losses[0]:.4f} at step 0, {final:.4f} at step "
+        f"{TRAIN_STEPS} (per step {losses}); counters equal the torch_ref twin's; {smi}")
+    log_profile("one more train_long step", p_seconds, busy, top)
+    log(f"train_long: the flash backward's kernels in that step: {bwd_total:.1f} ms over "
+        f"{layers} calls ({bwd_total / layers:.2f} ms a call; by kernel, ms: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in bwd_ms.items()) + f"), "
+        f"{bwd_total / (p_seconds * 1e3):.3f} of the step's host time")
+    del state, step, opt
+    torch.cuda.empty_cache()
+    log(f"train_long phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "step_ms": step_ms, "peak": peak, "bwd_ms": bwd_total,
+            **variants}
 
 
 def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
@@ -3232,7 +3617,7 @@ def main() -> int:
     # full stream and B over every stream, and the unfused path's rounds
     sjpc_calls = (EST_ROUNDS + EST_ROUNDS // 2) * EST_STREAMS + EST_ROUNDS * UNFUSED_STREAMS
     by_path["estimators"] = read_counts("estimators", tuple(k for k in KERNELS
-                                                             if k != "flash_attention"),
+                                                             if k not in MODEL_KERNELS),
                                         sampling_calls=sjpc_calls)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -3262,6 +3647,8 @@ def main() -> int:
     by_path["plugins"] = phase_plugins()["launches"]
     torch.cuda.empty_cache()
     by_path["train"] = phase_train(device, smi)["launches"]
+    torch.cuda.empty_cache()
+    by_path["train_long"] = phase_train_long(device, smi)["launches"]
 
     rows = phase_numbers(device, cfg, params, records, tenants, by_path, est_out)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("fingerprint", "fused_ingest", "fused_pairs", "fused_query", "sample_weights",
-           "sketch_moments", "sketch_update", "flash_attention_f32", "flash_attention_tc")
+           "sketch_moments", "sketch_update", "flash_attention_f32", "flash_attention_tc",
+           "flash_attention_bwd")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 P = ctypes.c_void_p
@@ -44,9 +45,13 @@ SIGNATURES = {
     "sketch_moments": ("sjpc_sketch_moments", [P, P, P, I32, I32, I32, P]),
     "sketch_update": ("sjpc_sketch_update", [P, P, P, P, P, P, P, I64, I32, I32, I32, P]),
     "flash_attention_f32": ("flash_attention_f32_fwd",
-                            [P, P, P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, P]),
+                            [P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
+                             I32, P]),
     "flash_attention_tc": ("flash_attention_tc_fwd",
-                           [P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, P]),
+                           [P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, I32, P]),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            [P, P, P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, I32,
+                             I32, I32, I32, I32, P]),
 }
 
 _lock = threading.Lock()

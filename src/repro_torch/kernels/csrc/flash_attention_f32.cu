@@ -35,7 +35,12 @@
 // flash_attention_tc.cu: exp as ex2.approx of fma(s, log2 e, -m log2 e)
 // (relative error near 2^-22), masked scores -1e30, p = 0 where m_new <=
 // -5e29 and alpha = 0 where m_prev <= -5e29; out = acc / max(l, 1e-30) by
-// IEEE division; the scale 1/sqrt(hd) rounded from double.  The CPU
+// IEEE division; the scale 1/sqrt(hd) rounded from double.  On request
+// (lse != nullptr) each row's log-sum-exp goes out as in
+// flash_attention_tc.cu, for the backward.  probs_bf16 (the model's
+// probs_dtype bfloat16) rounds P and V to bf16 once before P V, as the
+// plain version does: the pre-pass writes V's parts 1 and 2 as zeros and
+// the softmax P's, so every partial product but P0 V0 is exactly 0.  The CPU
 // emulation of the scheme in tests/test_torch_attention.py (_f32_scheme:
 // the same parts, dropped products, tiles and order) stays within 8.4e-7
 // of the Pallas kernel on its four cases, against the 2e-5 gate; the same
@@ -109,10 +114,10 @@ struct Tile : Swizzle<HD> {
 
 // P (the score fragment after the softmax) as A fragments of P V in three
 // parts: register r of step kk of part j holds part j of p[8kk + 2r] and
-// p[8kk + 2r + 1].
+// p[8kk + 2r + 1]; parts 1 and 2 are 0 with probs_bf16.
 template <int BK>
 __device__ __forceinline__ void split(const float (&p)[BK / 2],
-                                      uint32_t (&parts)[kParts][BK / 16][4]) {
+                                      uint32_t (&parts)[kParts][BK / 16][4], int probs_bf16) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
@@ -125,8 +130,9 @@ __device__ __forceinline__ void split(const float (&p)[BK / 2],
       const __nv_bfloat162 b1 = __floats2bfloat162_rn(r0, r1);
       const float2 f1 = __bfloat1622float2(b1);
       parts[0][kk][r] = bf16x2_bits(b0);
-      parts[1][kk][r] = bf16x2_bits(b1);
-      parts[2][kk][r] = bf16x2_bits(__floats2bfloat162_rn(r0 - f1.x, r1 - f1.y));
+      parts[1][kk][r] = probs_bf16 ? 0u : bf16x2_bits(b1);
+      parts[2][kk][r] =
+          probs_bf16 ? 0u : bf16x2_bits(__floats2bfloat162_rn(r0 - f1.x, r1 - f1.y));
     }
   }
 }
@@ -193,8 +199,9 @@ __device__ __forceinline__ void accumulate(float (&acc)[N], const float (&o)[N],
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_f32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-                 const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, int B, int H,
-                 int KV, int Sq, int Skv, float scale, int causal) {
+                 const __grid_constant__ CUtensorMap vmap, float* __restrict__ o,
+                 float* __restrict__ lse, int B, int H, int KV, int Sq, int Skv, float scale,
+                 int causal, int probs_bf16) {
   using T = Tile<HD>;
   constexpr int kBK = T::kBK;
   extern __shared__ uint8_t smem_raw[];
@@ -309,7 +316,7 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       fence_regs(sc);
       mbar_arrive(empty_k);
       sm.update(sc, rows, 0, Skv, scale, causal);  // alpha(0) is 0: acc starts from O(0)
-      split<kBK>(sc, p);
+      split<kBK>(sc, p, probs_bf16);
     }
     for (int t = 1; t < n_tiles; ++t) {
       const int s = t % kStages;
@@ -333,7 +340,7 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       fence_frags<kBK>(p);
       mbar_arrive(empty_v + 8 * sp);
       accumulate(acc, ot, alpha_a, alpha_b);
-      split<kBK>(sc, p);
+      split<kBK>(sc, p, probs_bf16);
     }
     if (n_tiles > 0) {
       const int sp = (n_tiles - 1) % kStages;
@@ -367,15 +374,18 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
         *reinterpret_cast<float2*>(ob + qb * row_stride + col) =
             make_float2(acc[4 * j + 2] / den_b, acc[4 * j + 3] / den_b);
     }
+    if (lse != nullptr && col0 == 0) store_lse(lse, sm, b, h, H, Sq, qa);
   }
 }
 
 // One tensor for the split pre-pass: n4 groups of four f32 values, and
-// its three bf16 parts, part j of group i at parts[j * n4 + i].
+// its three bf16 parts, part j of group i at parts[j * n4 + i]; parts
+// from `keep` on are written as zeros.
 struct SplitJob {
   const float4* x;
   uint2* parts;
   long long n4;
+  int keep;
 };
 
 constexpr int kSplitThreads = 256;
@@ -392,7 +402,8 @@ split_kernel(SplitJob q, SplitJob k, SplitJob v) {
     for (int j = 0; j < kParts; ++j) {
       const __nv_bfloat162 lo = __floats2bfloat162_rn(r[0], r[1]);
       const __nv_bfloat162 hi = __floats2bfloat162_rn(r[2], r[3]);
-      job.parts[j * job.n4 + i] = make_uint2(bf16x2_bits(lo), bf16x2_bits(hi));
+      job.parts[j * job.n4 + i] =
+          j < job.keep ? make_uint2(bf16x2_bits(lo), bf16x2_bits(hi)) : make_uint2(0u, 0u);
       const float2 flo = __bfloat1622float2(lo);
       const float2 fhi = __bfloat1622float2(hi);
       r[0] -= flo.x;
@@ -405,17 +416,18 @@ split_kernel(SplitJob q, SplitJob k, SplitJob v) {
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* qs, void* ks, void* vs,
-                   void* o, int B, int H, int KV, int Sq, int Skv, int causal,
-                   cudaStream_t stream) {
+                   void* o, float* lse, int B, int H, int KV, int Sq, int Skv, int causal,
+                   int probs_bf16, cudaStream_t stream) {
   using T = Tile<HD>;
   const long long nq4 = static_cast<long long>(B) * Sq * H * HD / 4;
   const long long nkv4 = static_cast<long long>(B) * Skv * KV * HD / 4;
   const long long blocks = std::min<long long>((std::max(nq4, nkv4) + kSplitThreads - 1) /
                                                    kSplitThreads,
                                                132 * 8);
-  const SplitJob jq = {static_cast<const float4*>(q), static_cast<uint2*>(qs), nq4};
-  const SplitJob jk = {static_cast<const float4*>(k), static_cast<uint2*>(ks), nkv4};
-  const SplitJob jv = {static_cast<const float4*>(v), static_cast<uint2*>(vs), nkv4};
+  const SplitJob jq = {static_cast<const float4*>(q), static_cast<uint2*>(qs), nq4, kParts};
+  const SplitJob jk = {static_cast<const float4*>(k), static_cast<uint2*>(ks), nkv4, kParts};
+  const SplitJob jv = {static_cast<const float4*>(v), static_cast<uint2*>(vs), nkv4,
+                       probs_bf16 ? 1 : kParts};
   split_kernel<<<dim3(static_cast<unsigned>(blocks), 3), kSplitThreads, 0, stream>>>(jq, jk, jv);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -431,28 +443,42 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* qs, void* 
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD)));
   flash_f32_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<float*>(o), B, H, KV, Sq, Skv, scale, causal);
+      qmap, kmap, vmap, static_cast<float*>(o), lse, B, H, KV, Sq, Skv, scale, causal,
+      probs_bf16);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // float32 q, k, v and out; qs, ks and vs are bf16 scratch of three times
-// q's, k's and v's element counts, for their parts.  Returns the
-// launches' CUDA error (0: none).
+// q's, k's and v's element counts, for their parts; lse (B, H, Sq)
+// float32 or nullptr.  Returns the launches' CUDA error (0: none).
 extern "C" int flash_attention_f32_fwd(const void* q, const void* k, const void* v, void* qs,
-                                       void* ks, void* vs, void* o, int B, int H, int KV, int Sq,
-                                       int Skv, int hd, int causal, int device, void* stream) {
+                                       void* ks, void* vs, void* o, void* lse, int B, int H,
+                                       int KV, int Sq, int Skv, int hd, int causal,
+                                       int probs_bf16, int device, void* stream) {
   cudaSetDevice(device);
   if (B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaGetLastError());
   if (KV <= 0 || H % KV != 0 || Skv <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (hd) {
-    case 16: err = launch<16>(q, k, v, qs, ks, vs, o, B, H, KV, Sq, Skv, causal, s); break;
-    case 32: err = launch<32>(q, k, v, qs, ks, vs, o, B, H, KV, Sq, Skv, causal, s); break;
-    case 64: err = launch<64>(q, k, v, qs, ks, vs, o, B, H, KV, Sq, Skv, causal, s); break;
-    case 128: err = launch<128>(q, k, v, qs, ks, vs, o, B, H, KV, Sq, Skv, causal, s); break;
+    case 16:
+      err = launch<16>(q, k, v, qs, ks, vs, o, static_cast<float*>(lse), B, H, KV, Sq, Skv,
+                        causal, probs_bf16, s);
+      break;
+    case 32:
+      err = launch<32>(q, k, v, qs, ks, vs, o, static_cast<float*>(lse), B, H, KV, Sq, Skv,
+                        causal, probs_bf16, s);
+      break;
+    case 64:
+      err = launch<64>(q, k, v, qs, ks, vs, o, static_cast<float*>(lse), B, H, KV, Sq, Skv,
+                        causal, probs_bf16, s);
+      break;
+    case 128:
+      err = launch<128>(q, k, v, qs, ks, vs, o, static_cast<float*>(lse), B, H, KV, Sq, Skv,
+                        causal, probs_bf16, s);
+      break;
     default: break;
   }
   return static_cast<int>(err);

@@ -25,7 +25,13 @@
 //     into the same f32 accumulator (p_hi + p_lo keeps about 16 bits of p,
 //     a relative error near 2^-17; rounding P to bf16 once, as SDPA does,
 //     would compute another function);
-//   * out = acc / max(l, 1e-30) by IEEE division, rounded to bf16.
+//   * out = acc / max(l, 1e-30) by IEEE division, rounded to bf16;
+//   * on request (lse != nullptr, for the backward in
+//     flash_attention_bwd.cu) each row's log-sum-exp m + logf(l) in f32,
+//     +inf for a row that saw no key (m <= -5e29), so that the backward's
+//     exp(s - lse) is exactly 0 there; with nullptr nothing more is stored;
+//   * with probs_bf16 (the model's probs_dtype bfloat16) p_lo is 0: P is
+//     rounded to bf16 once before P V, as the plain version rounds it.
 //
 // What bounds it: operations.  4 * hd flops per visible (query, key) pair
 // at the 989 TFLOP/s bf16 tensor-core rate; the hi/lo split makes the
@@ -83,9 +89,9 @@ struct Tile : Swizzle<HD> {
 
 // P (the score fragment after the softmax) as A fragments of P V: step kk's
 // register r holds p[8kk + 2r], p[8kk + 2r + 1], split as p_hi = bf16(p)
-// and p_lo = bf16(p - p_hi).
+// and p_lo = bf16(p - p_hi), or 0 with probs_bf16.
 __device__ __forceinline__ void split(const float (&p)[kBK / 2], uint32_t (&p_hi)[kBK / 16][4],
-                                      uint32_t (&p_lo)[kBK / 16][4]) {
+                                      uint32_t (&p_lo)[kBK / 16][4], int probs_bf16) {
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
 #pragma unroll
@@ -95,7 +101,7 @@ __device__ __forceinline__ void split(const float (&p)[kBK / 2], uint32_t (&p_hi
       const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
       const float2 hf = __bfloat1622float2(hi);
       p_hi[kk][r] = bf16x2_bits(hi);
-      p_lo[kk][r] = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+      p_lo[kk][r] = probs_bf16 ? 0u : bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
     }
   }
 }
@@ -144,8 +150,9 @@ __device__ __forceinline__ void values(float (&acc)[HD / 2], uint32_t (&p_hi)[kB
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-                const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int H,
-                int KV, int Sq, int Skv, float scale, int causal) {
+                const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, int H, int KV, int Sq, int Skv, float scale, int causal,
+                int probs_bf16) {
   using T = Tile<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -244,7 +251,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
       fence_regs(sc);
       mbar_arrive(empty_k);
       sm.update(sc, rows, 0, Skv, scale, causal);  // acc is still 0: nothing to rescale
-      split(sc, p_hi, p_lo);
+      split(sc, p_hi, p_lo, probs_bf16);
     }
     for (int t = 1; t < n_tiles; ++t) {
       const int s = t % kStages;
@@ -267,7 +274,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
       fence_frags(p_hi, p_lo);
       mbar_arrive(empty_v + 8 * sp);
       sm.rescale(acc);
-      split(sc, p_hi, p_lo);
+      split(sc, p_hi, p_lo, probs_bf16);
     }
     if (n_tiles > 0) {
       const int sp = (n_tiles - 1) % kStages;
@@ -300,12 +307,13 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
         *reinterpret_cast<__nv_bfloat162*>(ob + qb * row_stride + col) =
             __floats2bfloat162_rn(acc[4 * j + 2] / den_b, acc[4 * j + 3] / den_b);
     }
+    if (lse != nullptr && col0 == 0) store_lse(lse, sm, b, h, H, Sq, qa);
   }
 }
 
 template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-                   int Sq, int Skv, int causal, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                   int KV, int Sq, int Skv, int causal, int probs_bf16, cudaStream_t stream) {
   constexpr int smem = Tile<HD>::kSmemBytes;
   CUtensorMap qmap, kmap, vmap;
   if (!make_map<HD>(&qmap, q, H, Sq, B, kBQ) || !make_map<HD>(&kmap, k, KV, Skv, B, kBK) ||
@@ -317,26 +325,40 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD)));
   flash_tc_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, KV, Sq, Skv, scale, causal);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, H, KV, Sq, Skv, scale, causal,
+      probs_bf16);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bfloat16 q, k, v and out.  Returns the launch's CUDA error (0: none).
-extern "C" int flash_attention_tc_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                      int H, int KV, int Sq, int Skv, int hd, int causal,
-                                      int device, void* stream) {
+// bfloat16 q, k, v and out; lse (B, H, Sq) float32 or nullptr.  Returns
+// the launch's CUDA error (0: none).
+extern "C" int flash_attention_tc_fwd(const void* q, const void* k, const void* v, void* o,
+                                      void* lse, int B, int H, int KV, int Sq, int Skv, int hd,
+                                      int causal, int probs_bf16, int device, void* stream) {
   cudaSetDevice(device);
   if (B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaGetLastError());
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (hd) {
-    case 16: err = launch<16>(q, k, v, o, B, H, KV, Sq, Skv, causal, s); break;
-    case 32: err = launch<32>(q, k, v, o, B, H, KV, Sq, Skv, causal, s); break;
-    case 64: err = launch<64>(q, k, v, o, B, H, KV, Sq, Skv, causal, s); break;
-    case 128: err = launch<128>(q, k, v, o, B, H, KV, Sq, Skv, causal, s); break;
+    case 16:
+      err = launch<16>(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Skv, causal,
+                        probs_bf16, s);
+      break;
+    case 32:
+      err = launch<32>(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Skv, causal,
+                        probs_bf16, s);
+      break;
+    case 64:
+      err = launch<64>(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Skv, causal,
+                        probs_bf16, s);
+      break;
+    case 128:
+      err = launch<128>(q, k, v, o, static_cast<float*>(lse), B, H, KV, Sq, Skv, causal,
+                        probs_bf16, s);
+      break;
     default: break;
   }
   return static_cast<int>(err);

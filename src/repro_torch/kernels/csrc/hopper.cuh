@@ -1,14 +1,17 @@
 // Hopper building blocks shared by the tensor-core flash-attention kernels
 // (flash_attention_tc.cu in bf16, flash_attention_f32.cu in f32 from split
 // bf16 operands): mbarriers, TMA loads through 4-D tensor maps of the
-// model layout, wgmma descriptors and instructions, named barriers, and
-// the online softmax on the wgmma accumulator fragment.
+// model layout, wgmma descriptors and instructions, named barriers, the
+// online softmax on the wgmma accumulator fragment, and the store of each
+// row's log-sum-exp for the backward.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
+#include <cstddef>
 #include <cstdint>
 
 namespace {
@@ -333,6 +336,17 @@ struct Softmax {
     for (int i = 0; i < N; ++i) acc[i] *= (i & 2) ? alpha_b : alpha_a;
   }
 };
+
+// The log-sum-exp of the rows qa and qa + 8 after the last tile, into lse
+// (B, H, Sq) float32: m + logf(l), +inf for a row that saw no key.  Called
+// by one thread of each row's four.
+template <int BK>
+__device__ __forceinline__ void store_lse(float* lse, const Softmax<BK>& sm, int b, int h, int H,
+                                          int Sq, int qa) {
+  float* row = lse + (static_cast<size_t>(b) * H + h) * Sq;
+  if (qa < Sq) row[qa] = sm.m_a > kHalfNegInf ? sm.m_a + logf(sm.l_a) : INFINITY;
+  if (qa + 8 < Sq) row[qa + 8] = sm.m_b > kHalfNegInf ? sm.m_b + logf(sm.l_b) : INFINITY;
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,

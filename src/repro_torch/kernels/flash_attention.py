@@ -1,8 +1,9 @@
-"""Flash attention (forward): the CUDA kernels ``csrc/flash_attention_f32.cu``
-(float32 at f32 precision on the tensor cores, from operands split into
-three bf16 parts) and ``csrc/flash_attention_tc.cu`` (bfloat16,
-probabilities kept at f32 precision), both on wgmma and TMA, and their
-wrapper.
+"""Flash attention (forward; the backward is :mod:`.flash_attention_bwd`):
+the CUDA kernels ``csrc/flash_attention_f32.cu`` (float32 at f32
+precision on the tensor cores, from operands split into three bf16 parts)
+and ``csrc/flash_attention_tc.cu`` (bfloat16, probabilities kept at f32
+precision unless ``probs_dtype`` asks for bf16), both on wgmma and TMA,
+and their wrapper.
 
 Replaces the Pallas TPU kernel ``flash_attention_pallas`` (and its
 model-layout wrapper ``flash_attention``) of the JAX package.  This is the
@@ -27,7 +28,8 @@ PARTS = 3                   # bf16 parts of each f32 operand
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                    block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+                    block_q: int = 512, block_k: int = 512, probs_dtype=torch.float32,
+                    return_lse: bool = False):
     """q (B, Sq, H, hd), k/v (B, Skv, KV, hd), float32 or bfloat16, H a
     multiple of KV -> (B, Sq, H, hd) in q's dtype.  Causal masking is
     top-left aligned (query i sees keys 0..i).
@@ -37,12 +39,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     whatever they are, and agree with the oracle within 2e-5 (f32; in bf16
     within one bf16 ulp more) at any of them.  Any Sq and any Skv > 0 are
     accepted (ragged tiles are masked).  float32 inputs take bf16 scratch
-    for their three parts, 1.5 times their size."""
+    for their three parts, 1.5 times their size.  ``probs_dtype``
+    bfloat16 rounds P and V to bf16 before ``P V`` (float32 keeps P at
+    f32 precision).  With ``return_lse`` the kernel also stores each
+    query row's log-sum-exp, float32 (B, H, Sq), ``inf`` where a row sees
+    no key, and the call returns ``(out, lse)``; without it, nothing more
+    is stored."""
     global launches, tc_launches
     device = q.device
     _build.require_cuda("flash_attention", device)
     if q.dtype not in DTYPES:
         raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    if probs_dtype not in DTYPES:
+        raise TypeError(f"probs_dtype: expected float32 or bfloat16, got {probs_dtype}")
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
     if Skv == 0:
@@ -60,17 +69,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: data must be 16-byte aligned")
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=device) if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
+    lse_ptr = lse.data_ptr() if return_lse else None
+    probs_bf16 = int(probs_dtype == torch.bfloat16)
     if q.dtype == torch.bfloat16:
         _build.launch("flash_attention_tc", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), B, H, KV, Sq, Skv, hd, int(bool(causal)))
+                      out.data_ptr(), lse_ptr, B, H, KV, Sq, Skv, hd, int(bool(causal)),
+                      probs_bf16)
         tc_launches += 1
     else:
         qs, ks, vs = (torch.empty((PARTS,) + x.shape, dtype=torch.bfloat16, device=device)
                       for x in (q, k, v))
         _build.launch("flash_attention_f32", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), out.data_ptr(), B, H, KV,
-                      Sq, Skv, hd, int(bool(causal)))
+                      qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), out.data_ptr(), lse_ptr, B,
+                      H, KV, Sq, Skv, hd, int(bool(causal)), probs_bf16)
         launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -1,5 +1,6 @@
 """Public entry points of the port's kernels (the SJPC kernels and flash
-attention), dispatched through the kernel registry (:mod:`.registry`).
+attention, forward and backward), dispatched through the kernel registry
+(:mod:`.registry`).
 
 The same names and positional arguments as the JAX package's
 ``kernels.ops``, and ``sample_weights``, SJPC's projection sampling (in the
@@ -25,6 +26,7 @@ from ..core.hashing import as_field_tensor
 from ..obs.metrics import default_registry
 from . import fingerprint as _fingerprint
 from . import flash_attention as _flash_attention
+from . import flash_attention_bwd as _flash_attention_bwd
 from . import fused_ingest as _fused_ingest
 from . import fused_pairs as _fused_pairs
 from . import fused_query as _fused_query
@@ -35,6 +37,7 @@ from . import sketch_update as _sketch_update
 from .registry import kernel_registry
 
 _REG = kernel_registry()
+PROBS_DTYPES = (torch.float32, torch.bfloat16)   # flash attention's probs_dtype
 
 
 def _device(*xs) -> torch.device:
@@ -167,29 +170,30 @@ def fused_pairs(items, valid, *, impl=None):
     return out.reshape(lead + (d + 1,))
 
 
-def flash_attention(q, k, v, *, causal=True, block_q=512, block_k=512, impl=None):
+def flash_attention(q, k, v, *, causal=True, block_q=512, block_k=512,
+                    probs_dtype=torch.float32, impl=None):
     """Online-softmax attention in the model's layout: q (B, Sq, H, hd),
     k/v (B, Skv, KV, hd), float32 or bfloat16 -> (B, Sq, H, hd) in q's
     dtype; query head h reads KV head h // (H // KV); causal masking is
-    top-left aligned.
+    top-left aligned.  ``probs_dtype`` (float32 or bfloat16) is the type P
+    and V are rounded to before ``P V``; the softmax itself is float32.
 
     The JAX package's preconditions hold on both tiers and raise
     ``ValueError``: after ``min(block, length)``, Sq is a multiple of
     ``block_q`` and Skv of ``block_k``, and H a multiple of KV.  The plain
     version computes in those blocks; the kernel chooses its own tiles.
 
-    The op has no backward on either tier: with grad mode on, an input
-    that requires grad raises ``NotImplementedError`` rather than giving
-    an output whose gradient is silently cut (ROADMAP queue 1: the
-    flash-attention backward kernel).
+    Differentiable on both tiers: with grad mode on and an input that
+    requires grad, the call goes through an ``autograd.Function`` whose
+    forward also returns the rows' log-sum-exp and whose backward is the
+    ``flash_attention_bwd`` op (dQ, dK, dV recomputed from it), of the
+    same tier.  Otherwise it is the forward alone, with no saved tensors.
     """
-    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
-                                       for x in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward: training above CHUNKED_THRESHOLD tokens "
-            "waits for the hand-written flash-attention backward kernel (dQ/dK/dV "
-            "recomputed from the saved log-sum-exp; ROADMAP queue 1)")
+    if probs_dtype not in PROBS_DTYPES:
+        raise ValueError(f"probs_dtype {probs_dtype}: expected one of {PROBS_DTYPES}")
     device = _device(q, k, v)
+    grad = torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
+                                           for x in (q, k, v))
     q, k, v = (torch.as_tensor(x).to(device).contiguous() for x in (q, k, v))
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
@@ -203,8 +207,36 @@ def flash_attention(q, k, v, *, causal=True, block_q=512, block_k=512, impl=None
     block_q, block_k = min(block_q, sq), min(block_k, skv)
     if block_q <= 0 or block_k <= 0 or sq % block_q or skv % block_k:
         raise ValueError(f"blocks ({block_q}, {block_k}) do not tile ({sq}, {skv})")
+    if grad:
+        return _FlashAttention.apply(q, k, v, causal, block_q, block_k, probs_dtype, impl)
     run = _dispatch("flash_attention", device, impl)
-    return run(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
+    return run(q, k, v, causal=causal, block_q=block_q, block_k=block_k,
+               probs_dtype=probs_dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash op under autograd: the forward op of the call's tier
+    returns ``(out, lse)`` and saves ``q, k, v, out, lse``; the backward
+    runs the ``flash_attention_bwd`` op of the same tier.  Under
+    ``torch.utils.checkpoint`` the recomputed forward comes here again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k, probs_dtype, impl):
+        run = _dispatch("flash_attention", q.device, impl)
+        out, lse = run(q, k, v, causal=causal, block_q=block_q, block_k=block_k,
+                       probs_dtype=probs_dtype, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, block_q, block_k, probs_dtype, impl)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, block_q, block_k, probs_dtype, impl = ctx.args
+        run = _dispatch("flash_attention_bwd", q.device, impl)
+        dq, dk, dv = run(q, k, v, out, lse, dout.to(q.dtype).contiguous(), causal=causal,
+                         block_q=block_q, block_k=block_k, probs_dtype=probs_dtype)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def make_sjpc_update_fn(*, impl=None):
@@ -216,13 +248,15 @@ def make_sjpc_update_fn(*, impl=None):
 
 
 # ---------------------------------------------------------------------------
-# registrations: eight ops, each a kernel and its plain version
+# registrations: nine ops, each a kernel and its plain version
 # ---------------------------------------------------------------------------
 
 def _register_all(reg=_REG) -> None:
     for op, oracle, kernel in (
             ("fingerprint", ref.fingerprint_ref, _fingerprint.fingerprint),
             ("flash_attention", ref.flash_attention_ref, _flash_attention.flash_attention),
+            ("flash_attention_bwd", ref.flash_attention_bwd_ref,
+             _flash_attention_bwd.flash_attention_bwd),
             ("fused_ingest", ref.fused_ingest_ref, _fused_ingest.fused_ingest),
             ("fused_pairs", ref.fused_pairs_ref, _fused_pairs.fused_pairs),
             ("fused_query", ref.fused_query_ref, _fused_query.fused_query),

@@ -9,6 +9,8 @@ against them on the card.  On the card they run only when a caller names
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core import prng
@@ -107,13 +109,86 @@ def fused_pairs_ref(items, valid):
     return out
 
 
-def flash_attention_ref(q, k, v, *, causal=True, block_q=512, block_k=512):
+def flash_attention_ref(q, k, v, *, causal=True, block_q=512, block_k=512,
+                        probs_dtype=torch.float32, return_lse=False):
     """Online-softmax chunked attention, model layout: q (B, Sq, H, hd),
-    k/v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype.
+    k/v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype; with
+    ``return_lse``, :func:`flash_attention_lse_ref`'s ``(out, lse)``.
 
     ``models.attention.chunked_attention`` is the semantic ground truth of
     the flash kernel, as in the JAX package (<= 1e-6 against it in f32).
-    Imported lazily so that importing the kernels package never pulls in
-    the models tree."""
+    ``probs_dtype`` rounds P and V before ``P V``.  Imported lazily so
+    that importing the kernels package never pulls in the models tree."""
+    if return_lse:
+        return flash_attention_lse_ref(q, k, v, causal=causal, block_q=block_q,
+                                       block_k=block_k, probs_dtype=probs_dtype)
     from ..models.attention import chunked_attention
-    return chunked_attention(q, k, v, causal=causal, q_chunk=block_q, kv_chunk=block_k)
+    return chunked_attention(q, k, v, causal=causal, q_chunk=block_q, kv_chunk=block_k,
+                             probs_dtype=probs_dtype)
+
+
+def flash_attention_lse_ref(q, k, v, *, causal=True, block_q=512, block_k=512,
+                            probs_dtype=torch.float32):
+    """``(out, lse)``: :func:`flash_attention_ref`'s output, bit for bit,
+    and the float32 (B, H, Sq) log-sum-exp ``m + log(l)`` of each query
+    row's scaled scores (``inf`` for a row that sees no key), which the
+    backward reads."""
+    from ..models.attention import chunked_attention_lse
+    return chunked_attention_lse(q, k, v, causal=causal, q_chunk=block_q, kv_chunk=block_k,
+                                 probs_dtype=probs_dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True, block_q=512,
+                            block_k=512, probs_dtype=torch.float32):
+    """The flash-attention backward: ``(dq, dk, dv)`` in the inputs' dtypes
+    from the forward's ``out`` and ``lse`` and the cotangent ``dout``,
+    recomputed tile by tile in float32 as the kernel does:
+
+        D = rowsum(dO * O);  P = exp(S * scale - lse), 0 where masked;
+        dV = P^T dO;  dP = dO V^T;  dS = P * (dP - D);
+        dQ = dS K * scale;  dK = dS^T Q * scale,
+
+    dK and dV summed over the query heads of each KV group.  With
+    ``probs_dtype`` bfloat16 the forward rounded P and V before ``P V``;
+    here, as torch autograd does through ``chunked_attention``'s
+    ``.to(probs_dtype).to(float32)``, V is rounded, P is rounded where dV
+    reads it, dP is rounded, and so is dV once summed.  Tiles wholly above
+    a causal diagonal are skipped (they add nothing)."""
+    f32 = torch.float32
+    b, sq, h, hd = q.shape
+    skv, kv_h = k.shape[1], k.shape[2]
+    g = h // kv_h
+    scale = 1.0 / math.sqrt(hd)
+    rounded = probs_dtype != f32
+
+    def rnd(x):
+        return x.to(probs_dtype).to(f32) if rounded else x
+
+    qg = q.reshape(b, sq, kv_h, g, hd).to(f32)
+    dog = dout.reshape(b, sq, kv_h, g, hd).to(f32)
+    big_d = (dout.to(f32) * out.to(f32)).sum(-1).reshape(b, sq, kv_h, g).permute(0, 2, 3, 1)
+    lse_g = lse.reshape(b, kv_h, g, sq)
+    kf, vf = k.to(f32), rnd(v.to(f32))
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros(kf.shape, dtype=f32, device=q.device)
+    dv = torch.zeros(kf.shape, dtype=f32, device=q.device)
+    block_q, block_k = max(1, min(block_q, sq)), max(1, min(block_k, skv))
+    for q0 in range(0, sq, block_q):
+        q1 = min(q0 + block_q, sq)
+        qb, dob = qg[:, q0:q1], dog[:, q0:q1]
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        for k0 in range(0, skv, block_k):
+            if causal and k0 >= q1:
+                break
+            k1 = min(k0 + block_k, skv)
+            s = torch.einsum("bqkgh,bskh->bkgqs", qb, kf[:, k0:k1]) * scale
+            p = torch.exp(s - lse_g[..., q0:q1, None])
+            if causal:
+                p = torch.where(qpos >= torch.arange(k0, k1, device=q.device)[None, :], p, 0.0)
+            dp = rnd(torch.einsum("bqkgh,bskh->bkgqs", dob, vf[:, k0:k1]))
+            dv[:, k0:k1] += torch.einsum("bkgqs,bqkgh->bskh", rnd(p), dob)
+            ds = p * (dp - big_d[..., q0:q1, None])
+            dq[:, q0:q1] += torch.einsum("bkgqs,bskh->bqkgh", ds, kf[:, k0:k1])
+            dk[:, k0:k1] += torch.einsum("bkgqs,bqkgh->bskh", ds, qb)
+    return ((dq * scale).reshape(b, sq, h, hd).to(q.dtype), (dk * scale).to(k.dtype),
+            rnd(dv).to(v.dtype))

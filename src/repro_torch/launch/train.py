@@ -55,13 +55,13 @@ def make_train_step(cfg: ArchConfig, dims: Dims, optimizer: Optimizer, mesh=None
     ``batch`` holds ``tokens`` and ``labels`` (B, S), optionally ``mask``
     and an encoder-decoder's ``enc_feats``; tensors on the state's device
     or numpy arrays.  ``impl`` names the implementation of the kernel ops
-    the step runs (the monitor's, and flash attention's above
-    ``CHUNKED_THRESHOLD``); None goes by the device.  The returned state
+    the step runs (the monitor's, and flash attention's forward and
+    backward above ``CHUNKED_THRESHOLD``); None goes by the device.  The returned state
     holds the input state's parameter and moment tensors, updated."""
     if mesh is not None:
         raise NotImplementedError("a mesh (the deferred-merge monitor under shard_map and "
                                   "sharded state) waits for the multi-card slice, ROADMAP "
-                                  "queue 1 item 2")
+                                  "queue 1 item 1")
     update_fn = ops.make_sjpc_update_fn(impl=impl)
 
     def loss_fn(params, batch):

@@ -100,6 +100,15 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 2048,
     plain version of the ``flash_attention`` kernel.  Loops over
     (q-chunk, kv-chunk) tiles where the JAX package scans; like it, it
     computes every tile, the causally masked ones included."""
+    return chunked_attention_lse(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                 probs_dtype=probs_dtype)[0]
+
+
+def chunked_attention_lse(q, k, v, *, causal: bool, q_chunk: int = 2048,
+                          kv_chunk: int = 2048, probs_dtype=torch.float32):
+    """:func:`chunked_attention` and the log-sum-exp of each query row's
+    scaled scores, ``m + log(l)``, float32 (B, H, Sq); ``inf`` for a row
+    that sees no key, so that ``exp(s - lse)`` is 0 there."""
     b, sq, h, hd = q.shape
     skv, kv_h = k.shape[1], k.shape[2]
     q_chunk = min(q_chunk, sq)
@@ -115,7 +124,7 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 2048,
     kc = k.reshape(b, nk, kv_chunk, kv_h, hd).to(torch.float32)
     vc = v.reshape(b, nk, kv_chunk, kv_h, hd).to(probs_dtype).to(torch.float32)
 
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qblock = qg[:, qi]                                # (B, Cq, KV, G, hd)
         m = torch.full((b, kv_h, g, q_chunk), NEG_INF, dtype=torch.float32, device=dev)
@@ -137,9 +146,11 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 2048,
                 "bkgqs,bskh->bkgqh", p.to(probs_dtype).to(torch.float32), vc[:, ki])
             m = m_new
         outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])   # (B,KV,G,Cq,hd)
+        lses.append(torch.where(m > 0.5 * NEG_INF, m + torch.log(l), torch.inf))
     # (nq, B, KV, G, Cq, hd) -> (B, nq, Cq, KV, G, hd) -> (B, S, H, hd)
-    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5)
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, hd).to(q.dtype)
+    # (nq, B, KV, G, Cq) -> (B, KV, G, nq, Cq) -> (B, H, Sq)
+    return out, torch.stack(lses).permute(1, 2, 3, 0, 4).reshape(b, h, sq)
 
 
 CHUNKED_THRESHOLD = 8192
@@ -155,9 +166,9 @@ def attention_block(params, x, dims: Dims, positions, *, causal=True, kv_overrid
     either length exceeds :data:`CHUNKED_THRESHOLD` it runs
     ``ops.flash_attention`` with ``chunk`` as its q/kv tiles (``impl``
     names its implementation; None goes by the device); otherwise
-    :func:`full_attention` with ``probs_dtype``.  The flash op keeps its
-    probabilities in float32 and has no backward: other ``probs_dtype``
-    there, or inputs that require grad, raise ``NotImplementedError``.
+    :func:`full_attention`.  Both take ``probs_dtype``, and both are
+    differentiable: the flash op's backward is its own kernel op,
+    ``flash_attention_bwd``.
     """
     cfg = dims.cfg
     q = _project_q(params, x, positions, cfg.rope_theta, rope=rope)
@@ -166,12 +177,8 @@ def attention_block(params, x, dims: Dims, positions, *, causal=True, kv_overrid
         src.shape[1], dtype=torch.int32, device=src.device)[None].expand(src.shape[:2])
     k, v = _project_kv(params, src, kv_pos, cfg.rope_theta, rope=rope)
     if x.shape[1] > CHUNKED_THRESHOLD or src.shape[1] > CHUNKED_THRESHOLD:
-        if probs_dtype != torch.float32:
-            raise NotImplementedError(
-                f"probs_dtype {probs_dtype} above CHUNKED_THRESHOLD: the flash-attention "
-                f"kernels keep float32 probabilities")
         out = ops.flash_attention(q, k, v, causal=causal, block_q=chunk, block_k=chunk,
-                                  impl=impl)
+                                  probs_dtype=probs_dtype, impl=impl)
     else:
         out = full_attention(q, k, v, causal=causal, probs_dtype=probs_dtype)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)

@@ -883,11 +883,70 @@ def test_train_step_monitor_on_the_card_equals_its_plain_twin(cuda):
     assert int(got.step) == 1 and got.monitor.counters.device.type == "cuda"
 
 
-def test_flash_attention_kernel_tier_raises_under_grad(cuda):
+# The backward kernel against its plain version on the same (out, lse):
+# gradients relative to each one's max |x|.  f32 sums in its own order
+# (FLASH_F32_TOL); a bf16 gradient is that value rounded, one bf16 ulp
+# (2^-8 of the max) and a little more; with bf16 probabilities dP is
+# rounded to bf16 too, where two f32 orders may round an element apart.
+GRAD_BF16_TOL = 1e-2
+
+
+def _grad_case(cuda, b, sq, skv, h, kv, hd, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=cuda).to(dtype)
+                 for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd),
+                               (b, sq, h, hd)))
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd", [
+    (2, 64, 64, 4, 2, 16), (1, 96, 96, 6, 3, 64), (2, 64, 128, 4, 1, 32),
+    (1, 200, 200, 16, 2, 128), (1, 129, 63, 8, 8, 128), (1, 63, 300, 8, 1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("probs", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_equals_plain(cuda, b, sq, skv, h, kv, hd, dtype, causal,
+                                               probs):
+    """The op under autograd on the card (the kernel forward with its
+    log-sum-exp, then the backward kernel) against the plain tier's
+    backward on the kernel forward's own out and lse."""
+    from repro_torch.kernels import flash_attention_bwd as kfab
     from repro_torch.kernels import ops
-    q = torch.randn(1, 128, 2, 64, device=cuda, requires_grad=True)
-    k = torch.randn(1, 128, 1, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.flash_attention(q, k, k)
-    with torch.no_grad():
-        assert ops.flash_attention(q, k, k).shape == q.shape
+    q, k, v, dout = _grad_case(cuda, b, sq, skv, h, kv, hd, dtype, sq + skv + hd)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = kfab.launches
+    out = ops.flash_attention(*leaves, causal=causal, block_q=sq, block_k=skv,
+                              probs_dtype=probs)
+    got = torch.autograd.grad(out, leaves, dout)
+    assert kfab.launches == before + 1
+    out2, lse = kfa.flash_attention(q, k, v, causal=causal, probs_dtype=probs, return_lse=True)
+    assert torch.equal(out2, out.detach())
+    want = ref.flash_attention_bwd_ref(q, k, v, out2, lse, dout, causal=causal, block_q=sq,
+                                       block_k=skv, probs_dtype=probs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        rel = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        assert rel <= (FLASH_F32_TOL if dtype == probs == torch.float32 else GRAD_BF16_TOL), rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_is_deterministic(cuda, dtype):
+    """No atomics: two backward calls on the same inputs give the same
+    bits; and the forward without lse stores the same output as with it."""
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    q, k, v, dout = _grad_case(cuda, 1, 1000, 1000, 16, 2, 128, dtype, 1)
+    out, lse = kfa.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert torch.equal(out, kfa.flash_attention(q, k, v, causal=True))
+    first = kfab.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    second = kfab.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_lse_equals_plain(cuda, dtype, causal):
+    q, k, v, _ = _grad_case(cuda, 2, 200, 330, 8, 2, 64, dtype, 2)
+    _, lse = kfa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    _, want = ref.flash_attention_lse_ref(q, k, v, causal=causal, block_q=200, block_k=330)
+    assert torch.isfinite(lse).all()
+    assert float(((lse - want).abs() / want.abs().clamp_min(1)).max()) <= FLASH_F32_TOL

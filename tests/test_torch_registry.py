@@ -22,8 +22,8 @@ from repro_torch.kernels.registry import (CUDA_SM90, IMPLS, TORCH_REF, KernelReg
 from repro_torch.obs.metrics import default_registry
 
 REG = kernel_registry()
-OPS = ("fingerprint", "flash_attention", "fused_ingest", "fused_pairs", "fused_query",
-       "sample_weights", "sketch_moments", "sketch_update")
+OPS = ("fingerprint", "flash_attention", "flash_attention_bwd", "fused_ingest", "fused_pairs",
+       "fused_query", "sample_weights", "sketch_moments", "sketch_update")
 # Every op's kernel equals its oracle bit for bit, except flash attention:
 # the kernel sums in its own tiles and order, within FLASH_F32_TOL of the
 # oracle in f32 (the JAX package's flash-kernel tolerance).  A bf16 output
@@ -32,6 +32,11 @@ OPS = ("fingerprint", "flash_attention", "fused_ingest", "fused_pairs", "fused_q
 # limit).
 FLASH_F32_TOL = 2e-5
 FLASH_BF16_TOL = 2e-2
+# The backward's gradients, relative to each one's max |x|: f32 sums in
+# another order (FLASH_F32_TOL); bf16 outputs, or bf16 probabilities (dP
+# rounded to bf16), are those values rounded, one bf16 ulp (2^-8 of the
+# max) and a little more.
+GRAD_BF16_TOL = 1e-2
 
 
 def assert_flash_close(got, want):
@@ -42,6 +47,14 @@ def assert_flash_close(got, want):
         limit += torch.ldexp(torch.ones_like(diff), e - 8) * (want != 0)
         assert float(diff.max()) <= FLASH_BF16_TOL
     assert not bool((diff > limit).any()), (float(diff.max()), int((diff > limit).sum()))
+
+
+def assert_grads_close(got, want, probs):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        rel = float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30))
+        f32 = w.dtype == probs == torch.float32
+        assert rel <= (FLASH_F32_TOL if f32 else GRAD_BF16_TOL), rel
 
 
 def _i64(a):
@@ -69,6 +82,19 @@ def _cases(op: str, rng):
             q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
                        for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd)))
             out.append((q, k, v, causal))
+        return out
+    if op == "flash_attention_bwd":
+        out = []
+        for (b, sq, skv, h, kv, hd), dtype, causal, probs in (
+                ((2, 64, 64, 4, 2, 16), torch.float32, True, torch.float32),
+                ((1, 96, 128, 16, 2, 128), torch.float32, False, torch.bfloat16),
+                ((1, 128, 128, 8, 1, 64), torch.bfloat16, True, torch.float32)):
+            q, k, v, dout = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+                             for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd),
+                                           (b, sq, h, hd)))
+            o, lse = ref.flash_attention_lse_ref(q, k, v, causal=causal, block_q=32, block_k=32,
+                                                 probs_dtype=probs)
+            out.append(((q, k, v, o, lse, dout), causal, probs))
         return out
     if op == "fused_ingest":
         pad = proj.padded_lattice(5, 3)
@@ -135,6 +161,12 @@ def test_impl_matches_its_oracle(op, name):
             want = entry.oracle(q, k, v, causal=causal, block_q=32, block_k=32)
             assert got.dtype == want.dtype == q.dtype
             assert_flash_close(got.cpu(), want)
+            continue
+        if op == "flash_attention_bwd":
+            tensors, causal, probs = args
+            kw = dict(causal=causal, block_q=32, block_k=32, probs_dtype=probs)
+            got = entry.impl(name)(*_to(tensors, device), **kw)
+            assert_grads_close([g.cpu() for g in got], entry.oracle(*tensors, **kw), probs)
             continue
         got, want = entry.impl(name)(*_to(args, device)), entry.oracle(*args)
         got = got if isinstance(got, tuple) else (got,)

@@ -3,8 +3,9 @@
 encoder-decoder with frontend frames, the MoE aux losses), the gradients
 of one train step at every leaf, three AdamW steps of the integration
 test's tiny LM with the SJPC monitor, the remat modes, ``token_batches``,
-the flash op's refusal under grad, and a fresh interpreter that imports
-the training modules without jax.  Parameters and states are carried
+one step above ``CHUNKED_THRESHOLD`` (the flash op and its backward) on the
+dense, MoE and encoder-decoder configs, and a fresh interpreter that
+imports the training modules without jax.  Parameters and states are carried
 across with ``convert``."""
 import dataclasses
 import functools
@@ -23,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.data.loader import token_batches as jtoken_batches  # noqa: E402
 from repro.launch import train as jtrain  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
 from repro.models import model as jM  # noqa: E402
 from repro.models.config import ArchConfig as JArch  # noqa: E402
 from repro.models.config import compute_dims as jcompute_dims  # noqa: E402
@@ -32,7 +34,6 @@ from repro.sketchstream.monitor import SketchMonitorConfig as JMonitorConfig  # 
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert, tree  # noqa: E402
 from repro_torch.data.loader import to_device, token_batches  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import model as tM  # noqa: E402
@@ -240,7 +241,13 @@ def test_train_step_monitor_dispatches_the_kernel_ops():
 
 
 @pytest.mark.parametrize("kind", ["dense", "moe"])
-def test_remat_modes_give_equal_loss_and_gradients(kind):
+@pytest.mark.parametrize("threshold", [None, 8])
+def test_remat_modes_give_equal_loss_and_gradients(kind, threshold, monkeypatch):
+    """remat none, full and dots bit for bit; with the threshold at 8
+    every attention is the flash op, whose forward the checkpoint
+    recomputes through its autograd.Function."""
+    if threshold is not None:
+        monkeypatch.setattr(tattn, "CHUNKED_THRESHOLD", threshold)
     _, tcfg = _tiny_configs(kind)
     tdims = tcompute_dims(tcfg, tp=1)
     params = tM.init_params(torch.Generator().manual_seed(2), tcfg, tdims, device="cpu")
@@ -250,7 +257,7 @@ def test_remat_modes_give_equal_loss_and_gradients(kind):
     for remat in tM.REMAT_MODES:
         for p in leaves:
             p.requires_grad_(True)
-        _, aux, loss = _port_forward(params, tcfg, tdims, batch, remat=remat)
+        _, aux, loss = _port_forward(params, tcfg, tdims, batch, remat=remat, attn_chunk=8)
         total = loss + aux["moe_lb_loss"] + aux["moe_z_loss"]
         results[remat] = (total.detach(), torch.autograd.grad(total, leaves))
         for p in leaves:
@@ -270,39 +277,106 @@ def test_unknown_remat_and_mesh_raise():
     with pytest.raises(ValueError):
         tM.forward(params, tcfg, tdims, torch.zeros((1, 4), dtype=torch.int32),
                    remat="offload")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
         ttrain.make_train_step(tcfg, tdims, make_adamw(constant(1e-3)), mesh=object())
 
 
-def test_flash_attention_raises_under_grad_on_the_plain_tier(monkeypatch):
-    """The op has no backward: a requires_grad input raises with grad mode
-    on (on either tier; the card's is in test_torch_cuda.py), and a
-    training forward above CHUNKED_THRESHOLD raises with it; without
-    grad the same call runs."""
-    rng = np.random.default_rng(7)
-    q = torch.from_numpy(rng.normal(size=(1, 8, 2, 16)).astype(np.float32))
-    k = torch.from_numpy(rng.normal(size=(1, 8, 1, 16)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.flash_attention(q.clone().requires_grad_(True), k, k, block_q=4, block_k=4)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.flash_attention(q, k, k.clone().requires_grad_(True), block_q=4, block_k=4)
-    with torch.no_grad():
-        ops.flash_attention(q.clone().requires_grad_(True), k, k, block_q=4, block_k=4)
-    ops.flash_attention(q, k, k, block_q=4, block_k=4)
+# The train step above CHUNKED_THRESHOLD (patched to 8 in both packages):
+# (model, probs_dtype, attention chunk).  The dense tiny LM and the reduced
+# MoE over two 8-token tiles; the encoder-decoder's encoder (12 frames,
+# non-causal) and its cross-attention (16 queries over 12 frames, the
+# flash op with Sq != Skv) in 4-token tiles; bf16 probabilities on the
+# dense LM, where the two packages round P, dP and dV at places a tile's
+# rescale factor apart (a few bf16 ulps, 2^-8 each, of a leaf's max).
+ABOVE_THRESHOLD = [("dense", "float32", 8), ("moe", "float32", 8),
+                   ("seamless-m4t-large-v2", "float32", 4), ("dense", "bfloat16", 8)]
+PROBS = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+PROBS_BF16_TOL = 2e-2
 
-    _, tcfg = _tiny_configs("dense")
-    tdims = tcompute_dims(tcfg, tp=1)
+
+def _above_threshold_configs(kind):
+    if kind in ("dense", "moe"):
+        return _tiny_configs(kind)
+    return jconfigs.reduced(kind), tconfigs.reduced(kind)
+
+
+@pytest.mark.parametrize("kind,probs,chunk", ABOVE_THRESHOLD)
+def test_train_step_above_the_threshold_matches_jax(kind, probs, chunk, monkeypatch):
+    """One step's total loss and its gradient at every leaf, float32,
+    with every attention above the (patched) threshold: the port's flash
+    op and its backward (plain tier) against ``jax.value_and_grad``
+    through ``chunked_attention``."""
+    monkeypatch.setattr(jattn, "CHUNKED_THRESHOLD", 8)
     monkeypatch.setattr(tattn, "CHUNKED_THRESHOLD", 8)
-    state, mp = ttrain.make_train_state(torch.Generator().manual_seed(0), tcfg, tdims,
-                                        make_adamw(constant(1e-3)), device="cpu")
-    step = ttrain.make_train_step(tcfg, tdims, make_adamw(constant(1e-3)), remat="none",
-                                  compute_dtype=torch.float32, attn_chunk=8)
-    with pytest.raises(NotImplementedError, match="backward"):
-        step(state, _batch(tcfg, batch=1))
-    with pytest.raises(NotImplementedError, match="probs_dtype"):
+    jcfg, tcfg = _above_threshold_configs(kind)
+    jdims, tdims = jcompute_dims(jcfg, tp=1), tcompute_dims(tcfg, tp=1)
+    jparams = jM.strip_p(jM.init_params(jax.random.PRNGKey(2), jcfg, jdims))
+    batch = _batch(jcfg, seed=9)
+    jprobs, tprobs = PROBS[probs]
+
+    def jtotal(params):
+        lg, aux = jM.forward(params, jcfg, jdims, jnp.asarray(batch["tokens"]),
+                             enc_feats=(jnp.asarray(batch["enc_feats"])
+                                        if "enc_feats" in batch else None),
+                             compute_dtype=jnp.float32, remat="none", attn_chunk=chunk,
+                             probs_dtype=jprobs)
+        loss = jM.lm_loss(lg, jnp.asarray(batch["labels"]), jcfg.vocab_size)
+        if jcfg.num_experts:
+            loss = (loss + jtrain.MOE_LB_WEIGHT * aux["moe_lb_loss"]
+                    + jtrain.MOE_Z_WEIGHT * aux["moe_z_loss"])
+        return loss
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(jtotal))(jparams)
+    jgrads = jax.tree_util.tree_leaves(jgrads)
+    tparams = convert.model_params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                              device="cpu")
+    leaves = tree.tree_leaves(tparams)
+    for p in leaves:
+        p.requires_grad_(True)
+    from repro_torch.obs import metrics
+    reg = metrics.MetricsRegistry()
+    prev = metrics.set_default_registry(reg)
+    try:
+        _, aux, loss = _port_forward(tparams, tcfg, tdims, batch, attn_chunk=chunk,
+                                     probs_dtype=tprobs)
+        if tcfg.num_experts:
+            loss = (loss + ttrain.MOE_LB_WEIGHT * aux["moe_lb_loss"]
+                    + ttrain.MOE_Z_WEIGHT * aux["moe_z_loss"])
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        metrics.set_default_registry(prev)
+    counts = {dict(key)["kernel"]: n for key, n in reg.series("kernel_dispatch_total").items()}
+    attention_layers = tcfg.num_layers + (tcfg.encoder_layers + tcfg.num_layers
+                                          if tcfg.is_encdec else 0)
+    assert counts == {"flash_attention": attention_layers,
+                      "flash_attention_bwd": attention_layers}, counts
+    tol = TOL if probs == "float32" else PROBS_BF16_TOL
+    assert abs(float(loss.detach()) - float(jloss)) <= tol * abs(float(jloss))
+    assert len(grads) == len(jgrads)
+    worst = 0.0
+    for g, jg in zip(grads, jgrads):
+        assert tuple(g.shape) == tuple(jg.shape)
+        worst = max(worst, _rel(g, jg))
+    assert worst <= tol, worst
+
+
+def test_forward_above_the_threshold_without_grad_matches_jax(monkeypatch):
+    """Without grad the flash op is the forward alone, bf16 probabilities
+    included (which raised before the op had a backward)."""
+    monkeypatch.setattr(jattn, "CHUNKED_THRESHOLD", 8)
+    monkeypatch.setattr(tattn, "CHUNKED_THRESHOLD", 8)
+    (jcfg, jdims, jparams), (tcfg, tdims, tparams) = _model("qwen2.5-3b")
+    batch = _batch(jcfg)
+    for jprobs, tprobs in PROBS.values():
+        jlg, _ = jax.jit(lambda p: jM.forward(p, jcfg, jdims, jnp.asarray(batch["tokens"]),
+                                              compute_dtype=jnp.float32, remat="none",
+                                              attn_chunk=8, probs_dtype=jprobs))(jparams)
         with torch.no_grad():
-            tM.forward(state.params, tcfg, tdims, torch.zeros((1, 16), dtype=torch.int32),
-                       probs_dtype=torch.bfloat16)
+            lg, _ = tM.forward(tparams, tcfg, tdims, torch.from_numpy(batch["tokens"]),
+                               compute_dtype=torch.float32, remat="none", attn_chunk=8,
+                               probs_dtype=tprobs)
+        assert lg.grad_fn is None
+        assert _rel(lg, jlg) <= (TOL if tprobs == torch.float32 else PROBS_BF16_TOL)
 
 
 def test_probs_dtype_bf16_forward_matches_jax():
