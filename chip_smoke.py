@@ -397,13 +397,6 @@ TRAIN_LONG_TOKENS = SERVE_PROMPT
 # the model's.
 TRAIN_LONG_LAYERS = 32
 LONG_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
-# The backward grid: each gradient's max distance from the float64
-# gradient within this multiple of the plain path's (the plain version on
-# its own out and lse), plus GRAD_FLOOR of the largest gradient.  f32: the
-# kernel adds each product over its tile walk one FMA at a time, where
-# cuBLAS blocks its sums; bf16: both round the same f32 values to bf16.
-GRAD_MULT = {torch.float32: 4.0, torch.bfloat16: 1.25}
-GRAD_FLOOR = 2e-6
 
 KERNELS = {"fused_ingest": kfi, "sample_weights": ksw, "fingerprint": kfp,
            "fused_query": kfq, "fused_pairs": kpairs, "sketch_update": ksu,
@@ -806,43 +799,31 @@ def check_flash_grid(rng, device) -> None:
         f"{FLASH_BF16_TOL})")
 
 
-def exact_attention_grads(q, k, v, dout, causal: bool):
-    """dq, dk, dv of softmax attention in float64 by autograd (KV heads
-    repeated, so their gradients sum over each group; causal masking top-
-    left aligned): the exact gradients at the inputs, up to float64
-    rounding."""
-    b, sq, h, hd = q.shape
-    leaves = [x.double().requires_grad_(True) for x in (q, k, v)]
-    qd, kd, vd = leaves
-    kr, vr = (x.repeat_interleave(h // k.shape[2], 2) for x in (kd, vd))
-    s = torch.einsum("bqhd,bkhd->bhqk", qd, kr) / math.sqrt(hd)
-    if causal:
-        above = torch.ones(sq, k.shape[1], dtype=torch.bool, device=q.device).triu(1)
-        s = s.masked_fill(above, -math.inf)
-    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vr)
-    return torch.autograd.grad(out, leaves, dout.double())
-
-
 def check_flash_bwd_grid(rng, device) -> None:
-    """The flash-attention backward kernel against its plain version, each
-    path end to end (its own forward's out and lse, then its backward), on
-    the forward's grid: every head dim, GQA groups 1, 2 and 8, single rows,
-    ragged 64-row and 64-key tiles with Sq < Skv and Sq > Skv, causal or
-    not, f32 and bf16 inputs, probs_dtype f32 and bf16.  Each gradient's
-    max distance from the float64 gradient is within GRAD_MULT of the plain
-    path's (plus GRAD_FLOOR of the case's largest gradient).  Two calls of
-    the kernel give the same bits; the forward's out with the lse is its
-    out without, bit for bit; its lse is the plain version's within
-    FLASH_F32_TOL relative (to 1 at least); with bf16 probabilities its
-    out is within 2^-8 of max |v| of the plain version's (each path rounds
-    P at its own running max) plus, in bf16, one ulp of the plain value."""
-    lengths = ((1, 1), (63, 129), (129, 63), (200, 200), (200, 1000), (1000, 200))
+    """The flash-attention backward kernel against its plain version on the
+    forward's grid: every head dim, GQA groups 1, 2 and 8, single rows,
+    lengths either side of the kernels' 32-, 64- and 128-row tiles (127 /
+    129, 255 / 257) with Sq < Skv and Sq > Skv, causal or not, f32 and
+    bf16 inputs, probs_dtype f32 and bf16.  Each gradient's max distance
+    from the float64 gradient (ref.attention_grads_f64) is within
+    kfab.GRAD_MULT of the plain path's, plus kfab.GRAD_FLOOR of the case's
+    largest gradient, on two bases: end to end (each path its own
+    forward's out and lse, then its backward) and on the same forward (the
+    plain backward on the kernel forward's out and lse, which holds the
+    backward alone).  Two calls of the kernel give the same bits; the
+    forward's out with the lse is its out without, bit for bit; its lse is
+    the plain version's within FLASH_F32_TOL relative (to 1 at least); with
+    bf16 probabilities its out is within 2^-8 of max |v| of the plain
+    version's plus, in bf16, one ulp of the plain value."""
+    lengths = ((1, 1), (63, 129), (129, 63), (200, 200), (200, 1000), (1000, 200),
+               (127, 129), (129, 127), (255, 257), (257, 255))
     cases = [((2, sq, skv, 8, (8, 4, 1)[(i + hd // 16) % 3], hd), dtype, probs, causal)
              for dtype in (torch.float32, torch.bfloat16)
              for probs in (torch.float32, torch.bfloat16)
              for hd in kfa.HEAD_DIMS for i, (sq, skv) in enumerate(lengths)
              for causal in (True, False)]
-    worst = {}      # (dtype, probs) -> the largest kernel/plain distance ratio
+    worst = {}      # (dtype, probs, basis) -> the largest kernel/plain distance ratio
+    share = 0.0     # bf16 inputs, bf16 probs: the largest share of outputs != the plain one's
     t0 = time.perf_counter()
     for shape, dtype, probs, causal in cases:
         what = f"flash_attention_bwd {shape} {dtype} probs {probs} causal={causal}"
@@ -864,29 +845,37 @@ def check_flash_bwd_grid(rng, device) -> None:
                 diff = diff - (flash_limit(p_out) - FLASH_F32_TOL)
             require(float(diff.max()) <= limit,
                     f"{what}: forward {float(diff.max())} beyond {limit} of the plain version")
+            if dtype == torch.bfloat16:
+                share = max(share, float((out != p_out).float().mean()))
         got = kfab.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, probs_dtype=probs)
         again = kfab.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                          probs_dtype=probs)
         require(all(equal(a, b) for a, b in zip(got, again)),
                 f"{what}: two calls on the same inputs differ")
-        plain = ref.flash_attention_bwd_ref(q, k, v, p_out, p_lse, dout, causal=causal,
-                                            block_q=sq, block_k=skv, probs_dtype=probs)
-        exact = exact_attention_grads(q, k, v, dout, causal)
-        floor = GRAD_FLOOR * max(float(x.abs().max()) for x in exact)
-        for name, g, p, x in zip(("dq", "dk", "dv"), got, plain, exact):
+        kw = dict(causal=causal, block_q=sq, block_k=skv, probs_dtype=probs)
+        bases = {"end to end": ref.flash_attention_bwd_ref(q, k, v, p_out, p_lse, dout, **kw),
+                 "same forward": ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)}
+        exact = ref.attention_grads_f64(q, k, v, dout, causal=causal)
+        floor = kfab.GRAD_FLOOR * max(float(x.abs().max()) for x in exact)
+        mult = kfab.GRAD_MULT[dtype]
+        for name, g, x in zip(("dq", "dk", "dv"), got, exact):
             require(g.dtype == dtype and g.shape == x.shape, f"{what}: {name} dtype/shape")
-            e_kernel = float((g.double() - x).abs().max())
-            e_plain = float((p.double() - x).abs().max())
-            require(e_kernel <= GRAD_MULT[dtype] * e_plain + floor,
-                    f"{what}: {name} {e_kernel:.3g} from the float64 gradient, plain path "
-                    f"{e_plain:.3g} (limit {GRAD_MULT[dtype]} x + {floor:.3g})")
-            key = (str(dtype).split(".")[1], str(probs).split(".")[1])
-            worst[key] = max(worst.get(key, 0.0), e_kernel / max(e_plain, floor))
+        for basis, plain in bases.items():
+            for name, g, p, x in zip(("dq", "dk", "dv"), got, plain, exact):
+                e_kernel = float((g.double() - x).abs().max())
+                e_plain = float((p.double() - x).abs().max())
+                require(e_kernel <= mult * e_plain + floor,
+                        f"{what}: {name} {e_kernel:.3g} from the float64 gradient, plain path "
+                        f"({basis}) {e_plain:.3g} (limit {mult} x + {floor:.3g})")
+                key = (str(dtype).split(".")[1], str(probs).split(".")[1], basis)
+                worst[key] = max(worst.get(key, 0.0), e_kernel / max(e_plain, floor))
     log(f"kernels: {len(cases)} flash_attention_bwd checks (each dq, dk, dv against the float64 "
-        f"gradient, two calls bit for bit, the forward's lse and lse-less out) in "
-        f"{time.perf_counter() - t0:.1f} s; largest kernel/plain distance ratio by (input, "
-        f"probs) dtype: {worst} (limits {GRAD_MULT[torch.float32]} f32, "
-        f"{GRAD_MULT[torch.bfloat16]} bf16)")
+        f"gradient end to end and on the same forward, two calls bit for bit, the forward's "
+        f"lse and lse-less out) in {time.perf_counter() - t0:.1f} s; largest kernel/plain "
+        f"distance ratio by (input, probs, basis): {worst} (limits "
+        f"{kfab.GRAD_MULT[torch.float32]} f32, {kfab.GRAD_MULT[torch.bfloat16]} bf16); "
+        f"bf16 with bf16 probabilities: at most {share:.4f} of a case's outputs differ from "
+        f"the plain version's")
 
 
 def check_sample_weights_grid(device) -> int:
@@ -2054,11 +2043,12 @@ def flash_bwd_row(device, by_path, flush) -> dict:
     """The flash backward at the train_long layer shape (1, 10,240, 16
     heads over 2, hd 128, causal): the bf16 instantiation's row (the
     train_long path's dtype), the f32 one's numbers as its f32_* fields.
-    Useful work 10 * hd flops per visible pair (five products); bound on
-    the bf16 tensor cores' rate in bf16 and the CUDA cores' f32 rate in
-    f32.  The library: scaled_dot_product_attention(is_causal,
-    enable_gqa) forward and backward minus its forward, on the backend it
-    picks."""
+    Useful work 10 * hd flops per visible pair (five products), bound on
+    the bf16 tensor cores' rate; in f32 that of its split
+    (F32_SPLIT_PRODUCTS bf16 products per useful product, as row 7's), the
+    CUDA cores' f32 bound beside it as f32_bound_cuda_core_ms.  The
+    library: scaled_dot_product_attention(is_causal, enable_gqa) forward
+    and backward minus its forward, on the backend it picks."""
     rng = np.random.default_rng(TRAIN_SEED + 1)
     shape = (1, TRAIN_LONG_TOKENS, TRAIN_LONG_TOKENS, 16, 2, 128)
     out = {}
@@ -2104,20 +2094,28 @@ def flash_bwd_row(device, by_path, flush) -> dict:
         flops = fwd_flops // 4 * 10
         # q, k, v, out and dout read, dq, dk and dv written, lse read
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
-        rate = BF16_TENSOR_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-        b_ms, b_by = bound_ms(nbytes, flops, rate)
+        # tensor-core flops per useful flop: the f32 kernel's split
+        work = F32_SPLIT_PRODUCTS if dtype == torch.float32 else 1
+        b_ms, b_by = bound_ms(nbytes, work * flops, BF16_TENSOR_FLOPS_PER_S)
+        bounds = (f"bound {b_ms:.3f} ms ({b_by}: {nbytes} B, {work} x {flops} flops at "
+                  f"{BF16_TENSOR_FLOPS_PER_S / 1e12:.1f} TFLOP/s)")
+        if dtype == torch.float32:
+            cc_ms, _ = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+            bounds += (f", the CUDA cores' f32 bound {cc_ms:.3f} ms ({flops} flops at "
+                       f"{F32_FLOPS_PER_S / 1e12:.1f} TFLOP/s)")
         ms = min(k1, k2)
         tflops = flops / (ms / 1e3) / 1e12
         log(f"time flash_attention_bwd {dtype} {shape}: kernel {k1:.3f}/{k2:.3f} ms, plain "
             f"{p1:.3f}/{p2:.3f} ms, library (scaled_dot_product_attention forward+backward "
             f"{lib_both:.3f} ms minus forward {lib_fwd:.3f} ms) {lib_both - lib_fwd:.3f} ms "
-            f"(its gradients {lib_rel:.3g} of a max from the plain version's), bound "
-            f"{b_ms:.3f} ms ({b_by}: {nbytes} B, {flops} flops at {rate / 1e12:.1f} TFLOP/s); "
+            f"(its gradients {lib_rel:.3g} of a max from the plain version's), {bounds}; "
             f"kernel at {tflops:.2f} TFLOP/s of useful work; max abs err {err:.3g} "
             f"({rel:.3g} of a gradient's max)")
         out[dtype] = {"ms": ms, "plain_ms": min(p1, p2), "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": lib_both - lib_fwd, "max_abs_err": err, "tflops": tflops,
                       "library_rel_err": lib_rel}
+        if dtype == torch.float32:
+            out[dtype]["bound_cuda_core_ms"] = cc_ms
         del q, k, v, dout, o, lse, qt, kt, vt, dot, leaves
         torch.cuda.empty_cache()
     row = {"name": "flash_attention_bwd", "route": "cuda",
@@ -3294,10 +3292,9 @@ def check_train_long_variants(device, cfg, batch) -> dict:
     return {**out, "probs_gap": rel}
 
 
-# The flash backward's kernels by name: f32 (CUDA cores), bf16 (mma.sync),
-# and D.
-BWD_KERNEL_NAMES = ("dkdv_kernel", "dq_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
-                    "dot_rows_kernel")
+# The flash backward's kernels by name (csrc/flash_attention_bwd.cu): dK/dV
+# and dQ (either dtype), the lse and D rows, and the f32 split pre-pass.
+BWD_KERNEL_NAMES = ("dkdv_kernel", "dq_kernel", "rows_kernel", "split_kernel")
 
 
 def phase_train_long(device, smi: str) -> dict:

@@ -50,8 +50,8 @@ SIGNATURES = {
     "flash_attention_tc": ("flash_attention_tc_fwd",
                            [P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32, I32, P]),
     "flash_attention_bwd": ("flash_attention_bwd",
-                            [P, P, P, P, P, P, P, P, P, P, P, I32, I32, I32, I32, I32, I32,
-                             I32, I32, I32, I32, P]),
+                            [P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I32, I32, I32, I32,
+                             I32, I32, I32, I32, I32, I32, P]),
 }
 
 _lock = threading.Lock()

@@ -40,7 +40,9 @@
 // flash_attention_tc.cu, for the backward.  probs_bf16 (the model's
 // probs_dtype bfloat16) rounds P and V to bf16 once before P V, as the
 // plain version does: the pre-pass writes V's parts 1 and 2 as zeros and
-// the softmax P's, so every partial product but P0 V0 is exactly 0.  The CPU
+// the softmax P's, so every partial product but P0 V0 is exactly 0; and
+// as in flash_attention_tc.cu a first sweep over the K tiles finds each
+// row's max, so that P is rounded at its row's final max.  The CPU
 // emulation of the scheme in tests/test_torch_attention.py (_f32_scheme:
 // the same parts, dropped products, tiles and order) stays within 8.4e-7
 // of the Pallas kernel on its four cases, against the 2e-5 gate; the same
@@ -77,7 +79,6 @@
 // heaviest query tiles launch first.
 #include "hopper.cuh"
 
-#include <algorithm>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -87,14 +88,8 @@ namespace {
 constexpr int kBQ = 128;          // query rows per CTA: two consumer warpgroups of 64
 constexpr int kStages = 2;        // K/V ring depth
 constexpr int kThreads = 384;     // producer warpgroup + two consumers
-constexpr int kParts = 3;         // bf16 parts of every operand
-constexpr int kTerms = 6;         // partial products per matrix product
-
-// Partial product t (0..5, smallest first) multiplies part term_a(t) of
-// the left operand by part term_b(t) of the right one: (0, 2), (1, 1),
-// (2, 0), (0, 1), (1, 0), (0, 0).
-__host__ __device__ constexpr int term_a(int t) { return t < 3 ? t : (t == 4 ? 1 : 0); }
-__host__ __device__ constexpr int term_b(int t) { return t < 3 ? 2 - t : (t == 3 ? 1 : 0); }
+// kParts bf16 parts of every operand and kTerms partial products per
+// matrix product (term_a, term_b): hopper.cuh.
 
 // The tiles of one head dimension, each in kParts bf16 parts in the
 // swizzle layout of Swizzle<HD>: Q (kBQ rows) and the K and V tiles (kBK
@@ -111,40 +106,6 @@ struct Tile : Swizzle<HD> {
   // and the barriers (Q, then full K, full V, empty K and empty V per stage)
   static constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (1 + 4 * kStages);
 };
-
-// P (the score fragment after the softmax) as A fragments of P V in three
-// parts: register r of step kk of part j holds part j of p[8kk + 2r] and
-// p[8kk + 2r + 1]; parts 1 and 2 are 0 with probs_bf16.
-template <int BK>
-__device__ __forceinline__ void split(const float (&p)[BK / 2],
-                                      uint32_t (&parts)[kParts][BK / 16][4], int probs_bf16) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float x0 = p[8 * kk + 2 * r];
-      const float x1 = p[8 * kk + 2 * r + 1];
-      const __nv_bfloat162 b0 = __floats2bfloat162_rn(x0, x1);
-      const float2 f0 = __bfloat1622float2(b0);
-      const float r0 = x0 - f0.x, r1 = x1 - f0.y;
-      const __nv_bfloat162 b1 = __floats2bfloat162_rn(r0, r1);
-      const float2 f1 = __bfloat1622float2(b1);
-      parts[0][kk][r] = bf16x2_bits(b0);
-      parts[1][kk][r] = probs_bf16 ? 0u : bf16x2_bits(b1);
-      parts[2][kk][r] =
-          probs_bf16 ? 0u : bf16x2_bits(__floats2bfloat162_rn(r0 - f1.x, r1 - f1.y));
-    }
-  }
-}
-
-template <int BK>
-__device__ __forceinline__ void fence_frags(uint32_t (&parts)[kParts][BK / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < kParts; ++j) {
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(parts[j][kk]);
-  }
-}
 
 // Issues S (64 x kBK) = the six partial products of Q K^T for the
 // warpgroup's 64 rows of the Q tile at q_rows and the K tile at k_tile
@@ -247,26 +208,33 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
           tma_load(q_tile + j * T::kQPart + c * kBQ * T::kSwizzle, &qmap, bar_q,
                    c * T::kAtomCols, h, q0, j * B + b);
       }
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        const uint32_t parity = ((t / kStages) & 1) ^ 1;  // the first round passes
-        mbar_wait(empty_k + 8 * s, parity);
-        mbar_expect_tx(full_k + 8 * s, T::kKVBytes);
+      // With probs_bf16 the K ring first carries every K tile once for the
+      // consumers' max sweep (K load c is tile c), then the tiles again
+      // beside V (K load n_pre + t is tile t).
+      const int n_pre = probs_bf16 ? n_tiles : 0;
+      for (int c = 0; c < n_pre + n_tiles; ++c) {
+        const int ks = c % kStages;
+        const int kt = c < n_pre ? c : c - n_pre;
+        mbar_wait(empty_k + 8 * ks, ((c / kStages) & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(full_k + 8 * ks, T::kKVBytes);
 #pragma unroll
         for (int j = 0; j < kParts; ++j) {
 #pragma unroll
-          for (int c = 0; c < T::kChunks; ++c)
-            tma_load(k_tiles + s * T::kKVBytes + j * T::kKVPart + c * kBK * T::kSwizzle, &kmap,
-                     full_k + 8 * s, c * T::kAtomCols, kvh, t * kBK, j * B + b);
+          for (int c2 = 0; c2 < T::kChunks; ++c2)
+            tma_load(k_tiles + ks * T::kKVBytes + j * T::kKVPart + c2 * kBK * T::kSwizzle, &kmap,
+                     full_k + 8 * ks, c2 * T::kAtomCols, kvh, kt * kBK, j * B + b);
         }
-        mbar_wait(empty_v + 8 * s, parity);
+        if (c < n_pre) continue;
+        const int t = c - n_pre;
+        const int s = t % kStages;
+        mbar_wait(empty_v + 8 * s, ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(full_v + 8 * s, T::kKVBytes);
 #pragma unroll
         for (int j = 0; j < kParts; ++j) {
 #pragma unroll
-          for (int c = 0; c < T::kChunks; ++c)
-            tma_load(v_tiles + s * T::kKVBytes + j * T::kKVPart + c * kBK * T::kSwizzle, &vmap,
-                     full_v + 8 * s, c * T::kAtomCols, kvh, t * kBK, j * B + b);
+          for (int c2 = 0; c2 < T::kChunks; ++c2)
+            tma_load(v_tiles + s * T::kKVBytes + j * T::kKVPart + c2 * kBK * T::kSwizzle, &vmap,
+                     full_v + 8 * s, c2 * T::kAtomCols, kvh, t * kBK, j * B + b);
         }
       }
     }
@@ -285,7 +253,8 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     float acc[HD / 2];   // the running output
     float ot[HD / 2];    // O of one key tile
     float sc[kBK / 2];
-    // P of the last softmax as A fragments, in three parts
+    // P of the last softmax as A fragments, in three parts (hopper.cuh's
+    // split_frags; parts 1 and 2 are 0 with probs_bf16)
     uint32_t p[kParts][kBK / 16][4];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) {
@@ -304,28 +273,46 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     // they are in flight; step n issues O(n-1).  acc takes O(t-1) with the
     // rescale of tile t-1: acc = acc * alpha(t-1) + O(t-1).
     mbar_wait(bar_q, 0);
+    // probs_bf16: a first sweep over the K tiles finds each row's max (both
+    // consumers at once, no turns), so that the main sweep forms every P,
+    // and rounds it to bf16, at its row's final max, as the plain version
+    // does over one key chunk.  The main sweep's K loads follow on the
+    // ring: load n_pre + t is tile t.
+    const int n_pre = probs_bf16 ? n_tiles : 0;
+    for (int t = 0; t < n_pre; ++t) {
+      const int s = t % kStages;
+      mbar_wait(full_k + 8 * s, (t / kStages) & 1);
+      wgmma_fence();
+      scores<HD>(sc, q_rows, k_tiles + s * T::kKVBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(empty_k + 8 * s);
+      sm.observe(sc, rows, t * kBK, Skv, scale, causal);
+    }
     if (n_tiles > 0) {
+      const int ks = n_pre % kStages;
       if (wg == 0) named_arrive(1);
       named_sync(1 + wg);
-      mbar_wait(full_k, 0);
+      mbar_wait(full_k + 8 * ks, (n_pre / kStages) & 1);
       wgmma_fence();
-      scores<HD>(sc, q_rows, k_tiles);
+      scores<HD>(sc, q_rows, k_tiles + ks * T::kKVBytes);
       wgmma_commit();
       named_arrive(2 - wg);
       wgmma_wait<0>();
       fence_regs(sc);
-      mbar_arrive(empty_k);
+      mbar_arrive(empty_k + 8 * ks);
       sm.update(sc, rows, 0, Skv, scale, causal);  // alpha(0) is 0: acc starts from O(0)
-      split<kBK>(sc, p, probs_bf16);
+      split_frags<kParts, kBK>(sc, p, probs_bf16 ? 1 : kParts);
     }
     for (int t = 1; t < n_tiles; ++t) {
-      const int s = t % kStages;
+      const int ks = (n_pre + t) % kStages;
       const int sp = (t - 1) % kStages;
       named_sync(1 + wg);
-      mbar_wait(full_k + 8 * s, (t / kStages) & 1);
+      mbar_wait(full_k + 8 * ks, ((n_pre + t) / kStages) & 1);
       mbar_wait(full_v + 8 * sp, ((t - 1) / kStages) & 1);
       wgmma_fence();
-      scores<HD>(sc, q_rows, k_tiles + s * T::kKVBytes);
+      scores<HD>(sc, q_rows, k_tiles + ks * T::kKVBytes);
       wgmma_commit();
       values<HD>(ot, p, v_tiles + sp * T::kKVBytes);
       wgmma_commit();
@@ -333,14 +320,14 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       const float alpha_a = sm.alpha_a, alpha_b = sm.alpha_b;  // of tile t - 1
       wgmma_wait<1>();
       fence_regs(sc);
-      mbar_arrive(empty_k + 8 * s);
+      mbar_arrive(empty_k + 8 * ks);
       sm.update(sc, rows, t * kBK, Skv, scale, causal);
       wgmma_wait<0>();
       fence_regs(ot);
-      fence_frags<kBK>(p);
+      fence_parts<kParts, kBK>(p);
       mbar_arrive(empty_v + 8 * sp);
       accumulate(acc, ot, alpha_a, alpha_b);
-      split<kBK>(sc, p, probs_bf16);
+      split_frags<kParts, kBK>(sc, p, probs_bf16 ? 1 : kParts);
     }
     if (n_tiles > 0) {
       const int sp = (n_tiles - 1) % kStages;
@@ -352,7 +339,7 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       if (wg == 0) named_arrive(2);  // consumer 1's last turn hands over nothing
       wgmma_wait<0>();
       fence_regs(ot);
-      fence_frags<kBK>(p);
+      fence_parts<kParts, kBK>(p);
       mbar_arrive(empty_v + 8 * sp);
       accumulate(acc, ot, sm.alpha_a, sm.alpha_b);
     }
@@ -378,42 +365,6 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
   }
 }
 
-// One tensor for the split pre-pass: n4 groups of four f32 values, and
-// its three bf16 parts, part j of group i at parts[j * n4 + i]; parts
-// from `keep` on are written as zeros.
-struct SplitJob {
-  const float4* x;
-  uint2* parts;
-  long long n4;
-  int keep;
-};
-
-constexpr int kSplitThreads = 256;
-
-// x = x0 + x1 + x2 for every element of q (blockIdx.y 0), k (1) and v (2).
-__global__ void __launch_bounds__(kSplitThreads)
-split_kernel(SplitJob q, SplitJob k, SplitJob v) {
-  const SplitJob job = blockIdx.y == 0 ? q : (blockIdx.y == 1 ? k : v);
-  for (long long i = static_cast<long long>(blockIdx.x) * kSplitThreads + threadIdx.x; i < job.n4;
-       i += static_cast<long long>(gridDim.x) * kSplitThreads) {
-    const float4 x = job.x[i];
-    float r[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int j = 0; j < kParts; ++j) {
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(r[0], r[1]);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(r[2], r[3]);
-      job.parts[j * job.n4 + i] =
-          j < job.keep ? make_uint2(bf16x2_bits(lo), bf16x2_bits(hi)) : make_uint2(0u, 0u);
-      const float2 flo = __bfloat1622float2(lo);
-      const float2 fhi = __bfloat1622float2(hi);
-      r[0] -= flo.x;
-      r[1] -= flo.y;
-      r[2] -= fhi.x;
-      r[3] -= fhi.y;
-    }
-  }
-}
-
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* qs, void* ks, void* vs,
                    void* o, float* lse, int B, int H, int KV, int Sq, int Skv, int causal,
@@ -421,15 +372,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* qs, void* 
   using T = Tile<HD>;
   const long long nq4 = static_cast<long long>(B) * Sq * H * HD / 4;
   const long long nkv4 = static_cast<long long>(B) * Skv * KV * HD / 4;
-  const long long blocks = std::min<long long>((std::max(nq4, nkv4) + kSplitThreads - 1) /
-                                                   kSplitThreads,
-                                               132 * 8);
-  const SplitJob jq = {static_cast<const float4*>(q), static_cast<uint2*>(qs), nq4, kParts};
-  const SplitJob jk = {static_cast<const float4*>(k), static_cast<uint2*>(ks), nkv4, kParts};
-  const SplitJob jv = {static_cast<const float4*>(v), static_cast<uint2*>(vs), nkv4,
-                       probs_bf16 ? 1 : kParts};
-  split_kernel<<<dim3(static_cast<unsigned>(blocks), 3), kSplitThreads, 0, stream>>>(jq, jk, jv);
-  cudaError_t err = cudaGetLastError();
+  SplitJobs jobs = {};
+  jobs.job[0] = {static_cast<const float4*>(q), static_cast<uint2*>(qs), nq4, kParts};
+  jobs.job[1] = {static_cast<const float4*>(k), static_cast<uint2*>(ks), nkv4, kParts};
+  jobs.job[2] = {static_cast<const float4*>(v), static_cast<uint2*>(vs), nkv4,
+                 probs_bf16 ? 1 : kParts};
+  cudaError_t err = split_all(jobs, 3, stream);
   if (err != cudaSuccess) return err;
   CUtensorMap qmap, kmap, vmap;
   if (!make_map<HD>(&qmap, qs, H, Sq, kParts * B, kBQ) ||

@@ -31,11 +31,19 @@
 //     +inf for a row that saw no key (m <= -5e29), so that the backward's
 //     exp(s - lse) is exactly 0 there; with nullptr nothing more is stored;
 //   * with probs_bf16 (the model's probs_dtype bfloat16) p_lo is 0: P is
-//     rounded to bf16 once before P V, as the plain version rounds it.
+//     rounded to bf16 once before P V, at its row's final max, as the
+//     plain version rounds it over one key chunk: a first sweep over the
+//     K tiles finds each row's max, and the main sweep's maxima never move.
+//     Rounding at each 128-key tile's running max instead would move about
+//     30 % of the bf16 outputs of a (2, 200, 1000, 8/1, 16) case one ulp
+//     from the plain version's (the CPU emulation in
+//     tests/test_torch_flash_grad.py), and D = rowsum(dO * out) carries
+//     each into the backward's gradients.
 //
 // What bounds it: operations.  4 * hd flops per visible (query, key) pair
 // at the 989 TFLOP/s bf16 tensor-core rate; the hi/lo split makes the
-// kernel do 6 * hd, so its own floor is 1.5x that bound.
+// kernel do 6 * hd, so its own floor is 1.5x that bound (probs_bf16 forms
+// S twice: 8 * hd).
 //
 // Design.  One CTA of three warpgroups takes 128 query rows of one
 // (batch, head).  Warpgroup 0 is the producer: one thread issues TMA loads
@@ -87,34 +95,6 @@ struct Tile : Swizzle<HD> {
   static constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (1 + 4 * kStages);
 };
 
-// P (the score fragment after the softmax) as A fragments of P V: step kk's
-// register r holds p[8kk + 2r], p[8kk + 2r + 1], split as p_hi = bf16(p)
-// and p_lo = bf16(p - p_hi), or 0 with probs_bf16.
-__device__ __forceinline__ void split(const float (&p)[kBK / 2], uint32_t (&p_hi)[kBK / 16][4],
-                                      uint32_t (&p_lo)[kBK / 16][4], int probs_bf16) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float x0 = p[8 * kk + 2 * r];
-      const float x1 = p[8 * kk + 2 * r + 1];
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
-      const float2 hf = __bfloat1622float2(hi);
-      p_hi[kk][r] = bf16x2_bits(hi);
-      p_lo[kk][r] = probs_bf16 ? 0u : bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-    }
-  }
-}
-
-__device__ __forceinline__ void fence_frags(uint32_t (&p_hi)[kBK / 16][4],
-                                            uint32_t (&p_lo)[kBK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    fence_regs(p_hi[kk]);
-    fence_regs(p_lo[kk]);
-  }
-}
-
 // Issues S (64 x kBK) = Q K^T for the warpgroup's 64 rows of the Q tile
 // at q_rows and the K tile at k_tile: hd / 16 steps of 16 columns.
 template <int HD>
@@ -135,15 +115,15 @@ __device__ __forceinline__ void scores(float (&sc)[kBK / 2], uint32_t q_rows, ui
 // Issues acc += P_hi V + P_lo V for the V tile at v_tile (MN-major):
 // kBK / 16 steps of 16 keys.
 template <int HD>
-__device__ __forceinline__ void values(float (&acc)[HD / 2], uint32_t (&p_hi)[kBK / 16][4],
-                                       uint32_t (&p_lo)[kBK / 16][4], uint32_t v_tile) {
+__device__ __forceinline__ void values(float (&acc)[HD / 2], uint32_t (&p)[2][kBK / 16][4],
+                                       uint32_t v_tile) {
   using T = Tile<HD>;
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
     const uint64_t dv = smem_desc(v_tile + kk * 16 * T::kSwizzle, kBK * T::kSwizzle,
                                   8 * T::kSwizzle, T::kLayout);
-    wgmma_rs(acc, p_hi[kk], dv);
-    wgmma_rs(acc, p_lo[kk], dv);
+    wgmma_rs(acc, p[0][kk], dv);
+    wgmma_rs(acc, p[1][kk], dv);
   }
 }
 
@@ -193,21 +173,28 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
 #pragma unroll
       for (int c = 0; c < T::kChunks; ++c)
         tma_load(q_tile + c * kBQ * T::kSwizzle, &qmap, bar_q, c * T::kAtomCols, h, q0, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        const uint32_t parity = ((t / kStages) & 1) ^ 1;  // the first round passes
-        mbar_wait(empty_k + 8 * s, parity);
-        mbar_expect_tx(full_k + 8 * s, T::kKVBytes);
+      // With probs_bf16 the K ring first carries every K tile once for the
+      // consumers' max sweep (K load c is tile c), then the tiles again
+      // beside V (K load n_pre + t is tile t).
+      const int n_pre = probs_bf16 ? n_tiles : 0;
+      for (int c = 0; c < n_pre + n_tiles; ++c) {
+        const int ks = c % kStages;
+        const int kt = c < n_pre ? c : c - n_pre;
+        mbar_wait(empty_k + 8 * ks, ((c / kStages) & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(full_k + 8 * ks, T::kKVBytes);
 #pragma unroll
-        for (int c = 0; c < T::kChunks; ++c)
-          tma_load(k_tiles + s * T::kKVBytes + c * kBK * T::kSwizzle, &kmap, full_k + 8 * s,
-                   c * T::kAtomCols, kvh, t * kBK, b);
-        mbar_wait(empty_v + 8 * s, parity);
+        for (int c2 = 0; c2 < T::kChunks; ++c2)
+          tma_load(k_tiles + ks * T::kKVBytes + c2 * kBK * T::kSwizzle, &kmap, full_k + 8 * ks,
+                   c2 * T::kAtomCols, kvh, kt * kBK, b);
+        if (c < n_pre) continue;
+        const int t = c - n_pre;
+        const int s = t % kStages;
+        mbar_wait(empty_v + 8 * s, ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(full_v + 8 * s, T::kKVBytes);
 #pragma unroll
-        for (int c = 0; c < T::kChunks; ++c)
-          tma_load(v_tiles + s * T::kKVBytes + c * kBK * T::kSwizzle, &vmap, full_v + 8 * s,
-                   c * T::kAtomCols, kvh, t * kBK, b);
+        for (int c2 = 0; c2 < T::kChunks; ++c2)
+          tma_load(v_tiles + s * T::kKVBytes + c2 * kBK * T::kSwizzle, &vmap, full_v + 8 * s,
+                   c2 * T::kAtomCols, kvh, t * kBK, b);
       }
     }
   } else {
@@ -224,8 +211,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
 
     float acc[HD / 2];
     float sc[kBK / 2];
-    // P of the last softmax as A fragments (hi and lo parts)
-    uint32_t p_hi[kBK / 16][4], p_lo[kBK / 16][4];
+    // P of the last softmax as A fragments: p[0] = bf16(p) and p[1] =
+    // bf16(p - p[0]), or 0 with probs_bf16 (hopper.cuh's split_frags)
+    uint32_t p[2][kBK / 16][4];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 #pragma unroll
@@ -239,54 +227,72 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
     // S(t) and acc += P(t-1) V(t-1), and runs the softmax of tile t while
     // that P V product is in flight; step n issues P(n-1) V(n-1).
     mbar_wait(bar_q, 0);
+    // probs_bf16: a first sweep over the K tiles finds each row's max (both
+    // consumers at once, no turns), so that the main sweep forms every P,
+    // and rounds it to bf16, at its row's final max, as the plain version
+    // does over one key chunk.  The main sweep's K loads follow on the
+    // ring: load n_pre + t is tile t.
+    const int n_pre = probs_bf16 ? n_tiles : 0;
+    for (int t = 0; t < n_pre; ++t) {
+      const int s = t % kStages;
+      mbar_wait(full_k + 8 * s, (t / kStages) & 1);
+      wgmma_fence();
+      scores<HD>(sc, q_rows, k_tiles + s * T::kKVBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(empty_k + 8 * s);
+      sm.observe(sc, rows, t * kBK, Skv, scale, causal);
+    }
     if (n_tiles > 0) {
+      const int ks = n_pre % kStages;
       if (wg == 0) named_arrive(1);
       named_sync(1 + wg);
-      mbar_wait(full_k, 0);
+      mbar_wait(full_k + 8 * ks, (n_pre / kStages) & 1);
       wgmma_fence();
-      scores<HD>(sc, q_rows, k_tiles);
+      scores<HD>(sc, q_rows, k_tiles + ks * T::kKVBytes);
       wgmma_commit();
       named_arrive(2 - wg);
       wgmma_wait<0>();
       fence_regs(sc);
-      mbar_arrive(empty_k);
+      mbar_arrive(empty_k + 8 * ks);
       sm.update(sc, rows, 0, Skv, scale, causal);  // acc is still 0: nothing to rescale
-      split(sc, p_hi, p_lo, probs_bf16);
+      split_frags<2, kBK>(sc, p, probs_bf16 ? 1 : 2);
     }
     for (int t = 1; t < n_tiles; ++t) {
-      const int s = t % kStages;
+      const int ks = (n_pre + t) % kStages;
       const int sp = (t - 1) % kStages;
       named_sync(1 + wg);
-      mbar_wait(full_k + 8 * s, (t / kStages) & 1);
+      mbar_wait(full_k + 8 * ks, ((n_pre + t) / kStages) & 1);
       mbar_wait(full_v + 8 * sp, ((t - 1) / kStages) & 1);
       wgmma_fence();
-      scores<HD>(sc, q_rows, k_tiles + s * T::kKVBytes);
+      scores<HD>(sc, q_rows, k_tiles + ks * T::kKVBytes);
       wgmma_commit();
-      values<HD>(acc, p_hi, p_lo, v_tiles + sp * T::kKVBytes);
+      values<HD>(acc, p, v_tiles + sp * T::kKVBytes);
       wgmma_commit();
       named_arrive(2 - wg);
       wgmma_wait<1>();
       fence_regs(sc);
-      mbar_arrive(empty_k + 8 * s);
+      mbar_arrive(empty_k + 8 * ks);
       sm.update(sc, rows, t * kBK, Skv, scale, causal);
       wgmma_wait<0>();
       fence_regs(acc);
-      fence_frags(p_hi, p_lo);
+      fence_parts<2, kBK>(p);
       mbar_arrive(empty_v + 8 * sp);
       sm.rescale(acc);
-      split(sc, p_hi, p_lo, probs_bf16);
+      split_frags<2, kBK>(sc, p, probs_bf16 ? 1 : 2);
     }
     if (n_tiles > 0) {
       const int sp = (n_tiles - 1) % kStages;
       named_sync(1 + wg);
       mbar_wait(full_v + 8 * sp, ((n_tiles - 1) / kStages) & 1);
       wgmma_fence();
-      values<HD>(acc, p_hi, p_lo, v_tiles + sp * T::kKVBytes);
+      values<HD>(acc, p, v_tiles + sp * T::kKVBytes);
       wgmma_commit();
       if (wg == 0) named_arrive(2);  // consumer 1's last turn hands over nothing
       wgmma_wait<0>();
       fence_regs(acc);
-      fence_frags(p_hi, p_lo);
+      fence_parts<2, kBK>(p);
       mbar_arrive(empty_v + 8 * sp);
     }
 

@@ -1,9 +1,12 @@
 // Hopper building blocks shared by the tensor-core flash-attention kernels
 // (flash_attention_tc.cu in bf16, flash_attention_f32.cu in f32 from split
-// bf16 operands): mbarriers, TMA loads through 4-D tensor maps of the
-// model layout, wgmma descriptors and instructions, named barriers, the
-// online softmax on the wgmma accumulator fragment, and the store of each
-// row's log-sum-exp for the backward.
+// bf16 operands, flash_attention_bwd.cu in both): mbarriers, TMA loads
+// through 4-D tensor maps of the model layout and bulk copies, wgmma
+// descriptors and instructions, named barriers, the online softmax on the
+// wgmma accumulator fragment, the store of each row's log-sum-exp for the
+// backward, and the f32 kernels' split into three bf16 parts (the
+// pre-pass over whole tensors and the split of an accumulator fragment
+// into A fragments).
 #pragma once
 
 #include <cuda.h>
@@ -77,6 +80,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` contiguous bytes from global into shared memory (both addresses
+// 16-byte aligned, bytes a multiple of 16); completion is reported to
+// `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // A wgmma shared-memory matrix descriptor: start address, leading and
 // stride byte offsets (16-byte units), swizzle layout type.
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
@@ -133,6 +148,104 @@ __device__ __forceinline__ float ex2(float x) {
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// The f32 kernels' split: x = x0 + x1 + x2, each part the round-to-nearest
+// bf16 of what the parts before it leave (all 24 bits of x).  A product of
+// two split operands sums the kTerms partial products whose part indices
+// add up to at most 2, smallest first: term t multiplies part term_a(t) of
+// the left operand by part term_b(t) of the right one, (0, 2), (1, 1),
+// (2, 0), (0, 1), (1, 0), (0, 0).
+constexpr int kParts = 3;
+constexpr int kTerms = 6;
+__host__ __device__ constexpr int term_a(int t) { return t < 3 ? t : (t == 4 ? 1 : 0); }
+__host__ __device__ constexpr int term_b(int t) { return t < 3 ? 2 - t : (t == 3 ? 1 : 0); }
+
+// An accumulator fragment x (64 x N, the layout of Rows) as the A
+// fragments of a product over its N columns, in NP bf16 parts: register r
+// of k-step kk of part j holds part j of x[8kk + 2r] and x[8kk + 2r + 1]
+// (the accumulator layout of two 8-column blocks is the A layout of one
+// k-step); parts from `keep` on are 0.
+template <int NP, int N>
+__device__ __forceinline__ void split_frags(const float (&x)[N / 2],
+                                            uint32_t (&parts)[NP][N / 16][4], int keep) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float r0 = x[8 * kk + 2 * r], r1 = x[8 * kk + 2 * r + 1];
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const __nv_bfloat162 p = __floats2bfloat162_rn(r0, r1);
+        parts[j][kk][r] = j < keep ? bf16x2_bits(p) : 0u;
+        const float2 f = __bfloat1622float2(p);
+        r0 -= f.x;
+        r1 -= f.y;
+      }
+    }
+  }
+}
+
+template <int NP, int N>
+__device__ __forceinline__ void fence_parts(uint32_t (&parts)[NP][N / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) fence_regs(parts[j][kk]);
+  }
+}
+
+// One tensor for the split pre-pass: n4 groups of four f32 values, and
+// its three bf16 parts, part j of group i at parts[j * n4 + i]; parts
+// from `keep` on are written as zeros.
+struct SplitJob {
+  const float4* x;
+  uint2* parts;
+  long long n4;
+  int keep;
+};
+
+struct SplitJobs {
+  SplitJob job[4];
+};
+
+constexpr int kSplitThreads = 256;
+
+// x = x0 + x1 + x2 for every element of the tensor of job blockIdx.y.
+__global__ void __launch_bounds__(kSplitThreads) split_kernel(const SplitJobs jobs) {
+  const SplitJob job = blockIdx.y == 0   ? jobs.job[0]
+                       : blockIdx.y == 1 ? jobs.job[1]
+                       : blockIdx.y == 2 ? jobs.job[2]
+                                         : jobs.job[3];
+  for (long long i = static_cast<long long>(blockIdx.x) * kSplitThreads + threadIdx.x; i < job.n4;
+       i += static_cast<long long>(gridDim.x) * kSplitThreads) {
+    const float4 x = job.x[i];
+    float r[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < kParts; ++j) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(r[0], r[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(r[2], r[3]);
+      job.parts[j * job.n4 + i] =
+          j < job.keep ? make_uint2(bf16x2_bits(lo), bf16x2_bits(hi)) : make_uint2(0u, 0u);
+      const float2 flo = __bfloat1622float2(lo);
+      const float2 fhi = __bfloat1622float2(hi);
+      r[0] -= flo.x;
+      r[1] -= flo.y;
+      r[2] -= fhi.x;
+      r[3] -= fhi.y;
+    }
+  }
+}
+
+// Launches split_kernel over the first n of `jobs` (at most 8 CTAs an SM).
+inline cudaError_t split_all(const SplitJobs& jobs, int n, cudaStream_t stream) {
+  long long most = 0;
+  for (int i = 0; i < n; ++i) most = jobs.job[i].n4 > most ? jobs.job[i].n4 : most;
+  long long blocks = (most + kSplitThreads - 1) / kSplitThreads;
+  blocks = blocks < 132 * 8 ? blocks : 132 * 8;
+  if (blocks == 0) return cudaSuccess;
+  split_kernel<<<dim3(static_cast<unsigned>(blocks), n), kSplitThreads, 0, stream>>>(jobs);
+  return cudaGetLastError();
 }
 
 // wgmma_ss: d (64 x N) = A (64 x 16) B^T (N x 16), both from shared
@@ -275,12 +388,14 @@ template <int BK>
 struct Softmax {
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f, alpha_a = 0.f, alpha_b = 0.f;
 
-  // Scores -> probabilities in place; updates m and l and keeps the
-  // rescale factors of the accumulator.
-  __device__ __forceinline__ void update(float (&sc)[BK / 2], const Rows& rows, int k0, int Skv,
-                                         float scale, int causal) {
+  // Scores -> scaled scores in place, -1e30 where masked; each row's max
+  // over the tile (reduced over the row's four threads).
+  __device__ __forceinline__ void scale_mask(float (&sc)[BK / 2], const Rows& rows, int k0,
+                                             int Skv, float scale, int causal, float& mx_a,
+                                             float& mx_b) const {
     const bool need_mask = k0 + BK > Skv || (causal && k0 + BK - 1 > rows.qrow0);
-    float mx_a = kNegInf, mx_b = kNegInf;
+    mx_a = kNegInf;
+    mx_b = kNegInf;
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       float x = sc[i] * scale;
@@ -301,6 +416,26 @@ struct Softmax {
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
     }
+  }
+
+  // The max sweep of probs_bf16: folds the tile's row maxima into m and
+  // forms no probability.  After every tile has been observed, update()
+  // finds m unchanged on each tile (the same scores, scaled and masked the
+  // same way), so each P is formed at its row's final max.
+  __device__ __forceinline__ void observe(float (&sc)[BK / 2], const Rows& rows, int k0, int Skv,
+                                          float scale, int causal) {
+    float mx_a, mx_b;
+    scale_mask(sc, rows, k0, Skv, scale, causal, mx_a, mx_b);
+    m_a = fmaxf(m_a, mx_a);
+    m_b = fmaxf(m_b, mx_b);
+  }
+
+  // Scores -> probabilities in place; updates m and l and keeps the
+  // rescale factors of the accumulator.
+  __device__ __forceinline__ void update(float (&sc)[BK / 2], const Rows& rows, int k0, int Skv,
+                                         float scale, int causal) {
+    float mx_a, mx_b;
+    scale_mask(sc, rows, k0, Skv, scale, causal, mx_a, mx_b);
     const float mn_a = fmaxf(m_a, mx_a);
     const float mn_b = fmaxf(m_b, mx_b);
     float sum_a = 0.f, sum_b = 0.f;

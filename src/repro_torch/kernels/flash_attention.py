@@ -41,7 +41,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     accepted (ragged tiles are masked).  float32 inputs take bf16 scratch
     for their three parts, 1.5 times their size.  ``probs_dtype``
     bfloat16 rounds P and V to bf16 before ``P V`` (float32 keeps P at
-    f32 precision).  With ``return_lse`` the kernel also stores each
+    f32 precision), P at its row's final max, as the oracle rounds it when
+    ``block_k`` covers Skv (a first sweep over the keys finds the max; the
+    oracle at a shorter ``block_k`` rounds at its chunks' running maxima).
+    With ``return_lse`` the kernel also stores each
     query row's log-sum-exp, float32 (B, H, Sq), ``inf`` where a row sees
     no key, and the call returns ``(out, lse)``; without it, nothing more
     is stored."""

@@ -1,6 +1,6 @@
 """Flash attention (backward): the CUDA kernel ``csrc/flash_attention_bwd.cu``
-(float32 on the CUDA cores, bfloat16 on the tensor cores with mma.sync)
-and its wrapper.
+(wgmma on TMA-fed rings: bfloat16 directly, float32 on operands split into
+three bf16 parts) and its wrapper.
 
 Replaces XLA's gradient of the JAX package's ``chunked_attention``
 (``models/attention.py``), which ``jax.value_and_grad`` differentiates
@@ -17,12 +17,24 @@ import torch
 
 from . import _build
 
-launches = 0      # calls (each three launches: D, dK/dV, dQ) since the last reset
+launches = 0      # calls (each lse/D rows, dK/dV, dQ; f32 the split first) since the last reset
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-TILE = 64                   # query rows and keys per tile
+TILE = 128                  # keys of a dK/dV CTA and query rows of a dQ CTA
+F32_TILE_HD128 = 64         # the same in float32 at hd 128 (three parts fill shared memory)
 MAX_TILES = 65535           # the grid's y limit
+ROW_PAD = 128               # the kernel's lse and D rows are padded to a multiple of this
+PARTS = 3                   # bf16 parts of each float32 operand
+# The kernel's accuracy, which chip_smoke.py and the card tests hold it to:
+# each gradient's max distance from ref.attention_grads_f64 within
+# GRAD_MULT of the plain path's, plus GRAD_FLOOR of the case's largest
+# gradient.  f32: the kernel sums six bf16 partial products a product
+# (three parts an operand) in the tensor cores' accumulator, flushed to
+# f32 running sums, in another order than cuBLAS; bf16: both round the
+# same f32 values to bf16.
+GRAD_MULT = {torch.float32: 4.0, torch.bfloat16: 1.25}
+GRAD_FLOOR = 2e-6
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, block_q=512, block_k=512,
@@ -50,8 +62,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, block_q=512, bl
         raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS}")
     if KV == 0 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
-    if max(-(-Sq // TILE), -(-Skv // TILE)) > MAX_TILES:
-        raise ValueError(f"Sq = {Sq} or Skv = {Skv} exceeds {MAX_TILES * TILE}")
+    tile = F32_TILE_HD128 if q.dtype == torch.float32 and hd == 128 else TILE
+    if max(-(-Sq // tile), -(-Skv // tile)) > MAX_TILES:
+        raise ValueError(f"Sq = {Sq} or Skv = {Skv} exceeds {MAX_TILES * tile}")
     for name, t, shape in (("q", q, (B, Sq, H, hd)), ("k", k, (B, Skv, KV, hd)),
                            ("v", v, (B, Skv, KV, hd)), ("out", out, (B, Sq, H, hd)),
                            ("dout", dout, (B, Sq, H, hd))):
@@ -63,16 +76,25 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, block_q=512, bl
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dq, dk, dv
-    rows_d = torch.empty((B, H, Sq), dtype=torch.float32, device=device)
+    # lse and D = rowsum(dout * out) of every (batch, head), padded rows
+    rows = torch.empty((2, B * H, -(-Sq // ROW_PAD) * ROW_PAD), dtype=torch.float32,
+                       device=device)
+    # float32: the bf16 parts of q, k, v and dout
+    splits = ([None] * 4 if q.dtype == torch.bfloat16 else
+              [torch.empty((PARTS,) + x.shape, dtype=torch.bfloat16, device=device)
+               for x in (q, k, v, dout)])
     # per-query-head partial sums of dK and dV, which the kernel adds over
     # each KV group in a fixed order
     part = (torch.empty((2, B, Skv, H, hd), dtype=torch.float32, device=device)
             if H > KV and Sq > 0 else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     _build.launch("flash_attention_bwd", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), dout.data_ptr(), lse.data_ptr(), rows_d.data_ptr(),
-                  None if part is None else part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), B, H, KV, Sq, Skv, hd,
-                  int(bool(causal)), int(probs_dtype == torch.bfloat16),
+                  out.data_ptr(), dout.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+                  *map(ptr, splits), ptr(part), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  B, H, KV, Sq, Skv, hd, int(bool(causal)), int(probs_dtype == torch.bfloat16),
                   int(q.dtype == torch.bfloat16))
     launches += 1
     return dq, dk, dv

@@ -182,6 +182,9 @@ def flash_attention(q, k, v, *, causal=True, block_q=512, block_k=512,
     ``ValueError``: after ``min(block, length)``, Sq is a multiple of
     ``block_q`` and Skv of ``block_k``, and H a multiple of KV.  The plain
     version computes in those blocks; the kernel chooses its own tiles.
+    With bf16 probabilities the kernel rounds P at its row's final max, the
+    plain version at its key blocks' running maxima: the same where
+    ``block_k`` covers Skv.
 
     Differentiable on both tiers: with grad mode on and an input that
     requires grad, the call goes through an ``autograd.Function`` whose

@@ -192,3 +192,34 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True, block_q=512
             dk[:, k0:k1] += torch.einsum("bkgqs,bqkgh->bskh", ds, qb)
     return ((dq * scale).reshape(b, sq, h, hd).to(q.dtype), (dk * scale).to(k.dtype),
             rnd(dv).to(v.dtype))
+
+
+def attention_grads_f64(q, k, v, dout, *, causal=True):
+    """The exact gradients of softmax attention at the inputs, up to
+    float64 rounding: ``(dq, dk, dv)`` float64 in the shapes of q, k and v,
+    computed one (batch, query head) at a time (KV head ``h // (H / KV)``,
+    its dk and dv summed over the group; causal masking top-left aligned).
+    The backward kernel's accuracy is measured against it."""
+    b, sq, h, hd = q.shape
+    skv, g = k.shape[1], h // k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    f64 = torch.float64
+    dq = torch.zeros(q.shape, dtype=f64, device=q.device)
+    dk = torch.zeros(k.shape, dtype=f64, device=q.device)
+    dv = torch.zeros(v.shape, dtype=f64, device=q.device)
+    above = torch.ones(sq, skv, dtype=torch.bool, device=q.device).triu(1)
+    for i in range(b):
+        for head in range(h):
+            j = head // g
+            qh, doh = q[i, :, head].to(f64), dout[i, :, head].to(f64)
+            kh, vh = k[i, :, j].to(f64), v[i, :, j].to(f64)
+            s = qh @ kh.T * scale
+            if causal:
+                s = s.masked_fill(above, -math.inf)
+            p = torch.softmax(s, -1)
+            dv[i, :, j] += p.T @ doh
+            dp = doh @ vh.T
+            ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+            dq[i, :, head] = ds @ kh * scale
+            dk[i, :, j] += ds.T @ qh * scale
+    return dq, dk, dv

@@ -6,6 +6,7 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 """
+
 import numpy as np
 import pytest
 
@@ -670,6 +671,23 @@ def test_flash_attention_f32_first_token_is_v0(cuda, hd):
                                atol=1e-5)
 
 
+def test_flash_attention_f32_repeats_bit_for_bit(cuda):
+    """The f32 forward at the kernel registry's f32 case, (2, 64, 64, 4, 2,
+    16) causal, 200 times on the same inputs: every call gives the first
+    call's bits, within FLASH_F32_TOL of the plain version (a race between
+    the kernel's pre-pass, its copies and its products would show as calls
+    that differ)."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+               for shape in ((2, 64, 4, 16), (2, 64, 2, 16), (2, 64, 2, 16)))
+    first = kfa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q.cpu(), k.cpu(), v.cpu(), causal=True, block_q=32,
+                                   block_k=32)
+    assert float((first.cpu() - want).abs().max()) <= FLASH_F32_TOL
+    calls = [kfa.flash_attention(q, k, v, causal=True) for _ in range(200)]
+    assert all(torch.equal(c, first) for c in calls)
+
+
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 64, 4, 48), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
@@ -900,7 +918,10 @@ def _grad_case(cuda, b, sq, skv, h, kv, hd, dtype, seed):
 
 @pytest.mark.parametrize("b,sq,skv,h,kv,hd", [
     (2, 64, 64, 4, 2, 16), (1, 96, 96, 6, 3, 64), (2, 64, 128, 4, 1, 32),
-    (1, 200, 200, 16, 2, 128), (1, 129, 63, 8, 8, 128), (1, 63, 300, 8, 1, 64)])
+    (1, 200, 200, 16, 2, 128), (1, 129, 63, 8, 8, 128), (1, 63, 300, 8, 1, 64),
+    # lengths either side of the kernel's 32-, 64- and 128-row tiles
+    (1, 127, 129, 8, 8, 128), (2, 129, 127, 8, 4, 64), (1, 255, 257, 8, 2, 32),
+    (1, 257, 255, 16, 2, 128), (2, 255, 129, 4, 2, 16), (1, 129, 255, 8, 1, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("probs", [torch.float32, torch.bfloat16])
@@ -940,6 +961,91 @@ def test_flash_attention_backward_is_deterministic(cuda, dtype):
     second = kfab.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
     for a, c in zip(first, second):
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd", [
+    (1, 1, 257, 4, 1, 16), (1, 257, 1, 8, 1, 64), (2, 1, 1, 4, 2, 32), (1, 1, 129, 8, 2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("probs", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_single_rows_and_keys(cuda, b, sq, skv, h, kv, hd, dtype,
+                                                       causal, probs):
+    """Sq or Skv of 1: the kernel's gradients (on its forward's out and
+    lse) and the plain path's (on its own) against the float64 gradient,
+    within the card's gate (kfab.GRAD_MULT, kfab.GRAD_FLOOR).  Where a row
+    sees one key, dQ and dK are 0 up to rounding, and a relative gate
+    against the plain version would compare two roundings' noise."""
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    q, k, v, dout = _grad_case(cuda, b, sq, skv, h, kv, hd, dtype, sq + 2 * skv + hd)
+    out, lse = kfa.flash_attention(q, k, v, causal=causal, probs_dtype=probs, return_lse=True)
+    got = kfab.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, probs_dtype=probs)
+    p_out, p_lse = ref.flash_attention_lse_ref(q, k, v, causal=causal, block_q=sq, block_k=skv,
+                                               probs_dtype=probs)
+    plain = ref.flash_attention_bwd_ref(q, k, v, p_out, p_lse, dout, causal=causal, block_q=sq,
+                                        block_k=skv, probs_dtype=probs)
+    exact = ref.attention_grads_f64(q, k, v, dout, causal=causal)
+    floor = kfab.GRAD_FLOOR * max(float(x.abs().max()) for x in exact)
+    for g, p, x in zip(got, plain, exact):
+        assert g.dtype == dtype and g.shape == x.shape
+        e_kernel = float((g.double() - x).abs().max())
+        e_plain = float((p.double() - x).abs().max())
+        assert e_kernel <= kfab.GRAD_MULT[dtype] * e_plain + floor, (e_kernel, e_plain, floor)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd", [
+    (2, 200, 1000, 8, 1, 16), (1, 255, 257, 8, 2, 128), (1, 1000, 200, 4, 4, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_probabilities_round_at_the_final_max(cuda, b, sq, skv, h, kv, hd,
+                                                                   causal):
+    """With bf16 probabilities the bf16 forward kernel rounds P at its
+    row's final max, as the plain version over one key chunk does: at most
+    1 % of the outputs differ from the plain version's (rounded at the
+    128-key tiles' running maxima, many more would:
+    test_torch_flash_grad.py emulates both), and the kernel's gradients
+    end to end are within the card's gate of the plain path's against the
+    float64 gradient."""
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    q, k, v, dout = _grad_case(cuda, b, sq, skv, h, kv, hd, torch.bfloat16, sq + skv + hd)
+    out, lse = kfa.flash_attention(q, k, v, causal=causal, probs_dtype=torch.bfloat16,
+                                   return_lse=True)
+    kw = dict(causal=causal, block_q=sq, block_k=skv, probs_dtype=torch.bfloat16)
+    p_out, p_lse = ref.flash_attention_lse_ref(q, k, v, **kw)
+    assert float((out != p_out).float().mean()) <= 0.01
+    got = kfab.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   probs_dtype=torch.bfloat16)
+    plain = ref.flash_attention_bwd_ref(q, k, v, p_out, p_lse, dout, **kw)
+    exact = ref.attention_grads_f64(q, k, v, dout, causal=causal)
+    floor = kfab.GRAD_FLOOR * max(float(x.abs().max()) for x in exact)
+    for g, p, x in zip(got, plain, exact):
+        e_kernel = float((g.double() - x).abs().max())
+        e_plain = float((p.double() - x).abs().max())
+        assert e_kernel <= kfab.GRAD_MULT[torch.bfloat16] * e_plain + floor, (e_kernel, e_plain)
+
+
+def test_flash_attention_backward_rejects_what_it_does_not_take(cuda):
+    """The backward's wrapper raises on what the kernel does not take:
+    misaligned data, a head dim outside 16/32/64/128, query heads that do
+    not group over the KV heads, another dtype."""
+    from repro_torch.kernels import flash_attention_bwd as kfab
+    q, k, v, dout = _grad_case(cuda, 1, 64, 64, 4, 2, 64, torch.bfloat16, 3)
+    out, lse = kfa.flash_attention(q, k, v, causal=True, return_lse=True)
+    before = kfab.launches
+    flat = torch.zeros(q.numel() + 8, dtype=q.dtype, device=cuda)
+    shifted = flat[1:q.numel() + 1].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        kfab.flash_attention_bwd(shifted, k, v, out, lse, dout)
+    q48 = torch.zeros((1, 64, 4, 48), dtype=q.dtype, device=cuda)
+    k48 = torch.zeros((1, 64, 2, 48), dtype=q.dtype, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        kfab.flash_attention_bwd(q48, k48, k48, q48, lse, q48)
+    k3 = torch.zeros((1, 64, 3, 64), dtype=q.dtype, device=cuda)
+    with pytest.raises(ValueError, match="group"):
+        kfab.flash_attention_bwd(q, k3, k3, out, lse, dout)
+    with pytest.raises(TypeError):
+        kfab.flash_attention_bwd(*(x.half() for x in (q, k, v, out)), lse, dout.half())
+    with pytest.raises(ValueError, match="no keys"):
+        kfab.flash_attention_bwd(q, k[:, :0], v[:, :0], out, lse, dout)
+    assert kfab.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
