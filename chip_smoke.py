@@ -98,6 +98,22 @@ w=1024, t=3):
   probabilities against f32, remat none/full/dots bit for bit; step ms,
   tokens/s, peak GB, the idle share and the backward's ms in a profiled
   step;
+* sharded ingest (``sharded`` phase, path ``sharded``): the stream's 2^20
+  records as 16 micro-batches of 65,536 through ``ShardedIngest`` at 4
+  shards stacked on the card (one ``sample_weights`` and one
+  ``fused_ingest`` launch per shard per micro-batch), the merged state
+  against the per-shard replay through the plain versions with the
+  executor's shard keys, bit for bit (``n`` 2^20, ``step`` 64), the merged
+  sketch's ``estimate_batch`` against the plain one, ``all_reduce`` over a
+  one-rank NCCL group; records/s beside ``update_fused``'s on the same
+  records;
+* training on a mesh (``train_mesh`` phase, path ``train_mesh``): the train
+  phase's model, batch, bf16, remat and monitor on a (data=1, model=1)
+  ``DeviceMesh`` of one NCCL rank, parameters and moments as DTensors,
+  the sharded Q8Adam, 4 steps; the loss falling, the monitor against its
+  ``torch_ref`` twin; at 4 of 36 layers two mesh steps against two
+  one-process steps with the same optimizer, losses and every parameter
+  and moment leaf bit for bit;
 * the plugin kinds (``plugins`` phase): ``examples/plugins_torch`` loaded
   through ``load_plugins``, a service of 16 ipf, 16 theta_kmv and 16 SJPC
   tenants of the paper's group (4,096 records each per epoch, 6 epochs,
@@ -154,6 +170,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 ROOT = Path(__file__).resolve().parent
@@ -185,13 +202,17 @@ from repro_torch.kernels import sample_weights as ksw  # noqa: E402
 from repro_torch.kernels import sketch_moments as ksm  # noqa: E402
 from repro_torch.kernels import sketch_update as ksu  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import shardings as SH  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.config import compute_dims  # noqa: E402
 from repro_torch import service as svc_mod  # noqa: E402
 from repro_torch.obs import Observability, Tracer, metrics  # noqa: E402
 from repro_torch.optim import make_adamw, make_q8adam  # noqa: E402
+from repro_torch.optim.adamw import local  # noqa: E402
+from repro_torch.optim.q8sharded import make_q8adam_sharded  # noqa: E402
 from repro_torch.optim.schedules import constant  # noqa: E402
 from repro_torch.runtime import SimulatedFailure  # noqa: E402
 from repro_torch.service.ingest import ingest_key, ingest_key_grid  # noqa: E402
@@ -397,6 +418,19 @@ TRAIN_LONG_TOKENS = SERVE_PROMPT
 # the model's.
 TRAIN_LONG_LAYERS = 32
 LONG_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+# The sharded phase: the stream phase's records through ShardedIngest,
+# SHARDED_SHARDS shards stacked on the card, in micro-batches of
+# SHARDED_MICRO rows (16,384 rows a shard): one sample_weights and one
+# fused_ingest launch per shard per micro-batch.
+SHARDED_SHARDS = 4
+SHARDED_MICRO = 1 << 16
+# The train_mesh phase: the train phase's model, batch, bf16 compute,
+# remat and monitor, on a (data=1, model=1) mesh of one NCCL rank, with
+# the sharded Q8Adam, MESH_STEPS steps; at TRAIN_CHECK_LAYERS the mesh
+# step against the one-process step, MESH_CHECK_STEPS steps, bit for bit.
+MESH_STEPS = 4
+MESH_CHECK_STEPS = 2
 
 KERNELS = {"fused_ingest": kfi, "sample_weights": ksw, "fingerprint": kfp,
            "fused_query": kfq, "fused_pairs": kpairs, "sketch_update": ksu,
@@ -3390,6 +3424,199 @@ def phase_train_long(device, smi: str) -> dict:
             **variants}
 
 
+@contextlib.contextmanager
+def one_rank_group(device):
+    """The default process group as one NCCL rank on ``device`` (a
+    ``FileStore`` in a temporary directory), destroyed on exit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_sharded(device, records, smi: str) -> dict[str, int]:
+    """The stream's records through ``ShardedIngest`` (path ``sharded``),
+    its shards stacked on the card, then the merged sketch's estimate;
+    held against the per-shard replay through the plain versions, with
+    the rate of ``update_fused`` on the same records beside it."""
+    t_phase = time.perf_counter()
+    cfg = PAPER_DEFAULTS
+    params, empty = sjpc.init(cfg, device=device)
+    micro = [records[j:j + SHARDED_MICRO] for j in range(0, len(records), SHARDED_MICRO)]
+    # one untimed call of each path first (allocator, first launches)
+    sjpc.update_fused(cfg, params, empty, micro[0])
+    sjpc.ShardedIngest(cfg, params, num_shards=SHARDED_SHARDS, device=device).ingest(micro[0])
+    state = empty
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in micro:
+        state = sjpc.update_fused(cfg, params, state, batch)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+
+    sh = sjpc.ShardedIngest(cfg, params, num_shards=SHARDED_SHARDS, device=device)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in micro:
+        sh.ingest(batch)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    merged = sh.merged()
+    est = sjpc.estimate_batch(cfg, merged.counters[None], [float(merged.n)])
+    calls = len(micro) * SHARDED_SHARDS
+    launches = read_counts("sharded", ("fused_ingest", "sample_weights", "fused_query"),
+                           sampling_calls=calls)
+    require(launches["fused_ingest"] == calls and launches["fused_query"] == 1
+            and all(n == 0 for name, n in launches.items()
+                    if name not in ("fused_ingest", "sample_weights", "fused_query")),
+            f"sharded: launches {launches}, predicted {calls} fused_ingest and sample_weights "
+            f"and 1 fused_query")
+    check_batch_estimate(cfg, est, merged.counters[None], merged.counters[None],
+                         [float(merged.n)], False, "sharded estimate_batch")
+
+    with oracle_calls():
+        shards = [empty] * SHARDED_SHARDS
+        per = SHARDED_MICRO // SHARDED_SHARDS
+        for m, batch in enumerate(micro):
+            for j in range(SHARDED_SHARDS):
+                shards[j] = sjpc.update_fused(cfg, params, shards[j],
+                                              batch[j * per:(j + 1) * per],
+                                              key=sh.shard_key(m, j), impl=registry.TORCH_REF)
+        want = empty
+        for st in shards:
+            want = sjpc.merge(want, st)
+    require(same_state(merged, want), "sharded: merged state != the plain per-shard replay")
+    require(float(merged.n) == len(records) and int(merged.step) == calls,
+            f"sharded: n {float(merged.n)}, step {int(merged.step)}")
+    reduced = sjpc.all_reduce(merged)
+    require(same_state(reduced, merged), "sharded: all_reduce over one rank changed the state")
+    log(f"sharded: {len(records)} records in {len(micro)} micro-batches of {SHARDED_MICRO} over "
+        f"{SHARDED_SHARDS} shards on the card: {len(records) / sharded_s:.0f} records/s "
+        f"({sharded_s / len(micro) * 1e3:.3f} ms a micro-batch, host clock); update_fused on "
+        f"the same records {len(records) / stream_s:.0f} records/s; merged state equals the "
+        f"plain per-shard replay and all_reduce over one NCCL rank; estimate_batch equals the "
+        f"plain one; {smi}")
+    log(f"sharded phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def mesh_state_leaves(state) -> list:
+    """A train state's parameter and optimizer leaves, each rank's block."""
+    return [local(x) for x in ptree.tree_leaves((state.params, state.opt))]
+
+
+def mesh_specs(mesh, cfg, dims):
+    """The parameters' spec tree on ``mesh``, from the abstract tree."""
+    return SH.param_pspecs(mesh, M.param_axes(M.init_params(torch.Generator(), cfg, dims,
+                                                            device="meta")))
+
+
+def check_mesh_step(device, cfg, batch, mesh) -> None:
+    """At TRAIN_CHECK_LAYERS of depth: MESH_CHECK_STEPS steps of the mesh
+    step and of the one-process step, both with the sharded Q8Adam, under
+    deterministic algorithms; losses, every parameter and moment leaf and
+    the monitor bit for bit."""
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS)
+    dims = compute_dims(cut, tp=1)
+    gen = lambda: torch.Generator(device).manual_seed(TRAIN_SEED)  # noqa: E731
+    specs = mesh_specs(mesh, cut, dims)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, where in (("mesh", mesh), ("one process", None)):
+            opt = make_q8adam_sharded(mesh, constant(TRAIN_LR), specs)
+            state, mparams = train.make_train_state(gen(), cut, dims, opt,
+                                                    monitor_cfg=TRAIN_MONITOR, device=device,
+                                                    mesh=where)
+            step = train.make_train_step(cut, dims, opt, where, monitor_cfg=TRAIN_MONITOR,
+                                         monitor_params=mparams, remat="full",
+                                         compute_dtype=torch.bfloat16)
+            losses = []
+            for _ in range(MESH_CHECK_STEPS):
+                state, out = step(state, batch)
+                losses.append(out["loss"])
+            runs[name] = (losses, mesh_state_leaves(state), local(state.monitor.counters))
+            del state, step, opt
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l_mesh, p_mesh, c_mesh), (l_one, p_one, c_one) = runs.values()
+    require(all(equal(a, b) for a, b in zip(l_mesh, l_one)),
+            f"train_mesh: losses {l_mesh} on the mesh, {l_one} in one process")
+    require(len(p_mesh) == len(p_one) and all(equal(a, b) for a, b in zip(p_mesh, p_one)),
+            "train_mesh: a parameter or moment leaf of the mesh step differs from the "
+            "one-process step's")
+    require(equal(c_mesh, c_one), "train_mesh: the monitor differs from the one-process step's")
+    log(f"train_mesh at {TRAIN_CHECK_LAYERS} of {cfg.num_layers} layers: {MESH_CHECK_STEPS} "
+        f"steps on the (data=1, model=1) NCCL mesh equal the one-process step bit for bit "
+        f"(losses {[float(x) for x in l_mesh]}, {len(p_mesh)} parameter and moment leaves, "
+        f"the monitor)")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def phase_train_mesh(device, smi: str) -> dict[str, int]:
+    """qwen2.5-3b at full width and depth through ``make_train_step`` on a
+    one-rank NCCL mesh with the sharded Q8Adam: MESH_STEPS steps on the
+    train phase's batch (path ``train_mesh``), after the 4-layer gate."""
+    t_phase = time.perf_counter()
+    cfg = configs.get(TRAIN_ARCH)
+    dims = compute_dims(cfg, tp=1)
+    batch = to_device(next(token_batches(1, TRAIN_TOKENS, cfg.vocab_size, seed=TRAIN_SEED)),
+                      device)
+    mesh = make_debug_mesh(1, 1, device_type="cuda")
+    check_mesh_step(device, cfg, batch, mesh)
+
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_q8adam_sharded(mesh, constant(TRAIN_LR), mesh_specs(mesh, cfg, dims))
+    state, mparams = train.make_train_state(torch.Generator(device).manual_seed(TRAIN_SEED),
+                                            cfg, dims, opt, monitor_cfg=TRAIN_MONITOR,
+                                            device=device, mesh=mesh)
+    step = train.make_train_step(cfg, dims, opt, mesh, monitor_cfg=TRAIN_MONITOR,
+                                 monitor_params=mparams, remat="full",
+                                 compute_dtype=torch.bfloat16)
+    losses, seconds = [], []
+    reset_counts()
+    for _ in range(MESH_STEPS):
+        dt, (state, out) = synced_s(lambda: step(state, batch))
+        losses.append(float(out["loss"]))
+        seconds.append(dt)
+    launches = read_counts("train_mesh", TRAIN_KERNELS, sampling_calls=MESH_STEPS)
+    per_level = MESH_STEPS * TRAIN_LEVELS
+    require(launches["fingerprint"] == launches["sketch_update"] == per_level
+            and all(n == 0 for name, n in launches.items() if name not in TRAIN_KERNELS),
+            f"train_mesh: launches {launches}, predicted {MESH_STEPS} sample_weights and "
+            f"{per_level} fingerprint and sketch_update")
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"train_mesh: losses {losses}")
+    with oracle_calls():
+        counters = torch.zeros_like(local(state.monitor.counters)[0])
+        n = torch.zeros_like(local(state.monitor.n)[0])
+        plain = ops.make_sjpc_update_fn(impl=registry.TORCH_REF)
+        for i in range(MESH_STEPS):
+            counters, n = mon.monitor_update_local(
+                TRAIN_MONITOR, mparams, counters, n, batch["tokens"],
+                torch.tensor(i, dtype=torch.int32, device=device), update_fn=plain,
+                impl=registry.TORCH_REF)
+    require(equal(local(state.monitor.counters)[0], counters)
+            and equal(local(state.monitor.n)[0], n),
+            "train_mesh: the monitor's counters differ from the torch_ref twin's")
+    step_ms = float(np.median(seconds[1:])) * 1e3
+    log(f"train_mesh: {TRAIN_ARCH} ({cfg.num_layers} layers) on a (data=1, model=1) NCCL mesh, "
+        f"sharded Q8Adam, bf16, remat full, batch 1 x {TRAIN_TOKENS}: step ms (median of steps "
+        f"2-{MESH_STEPS}) {step_ms:.1f}, first step {seconds[0] * 1e3:.1f}; tokens/s "
+        f"{TRAIN_TOKENS / step_ms * 1e3:.0f}; peak allocated {peak / 1e9:.2f} GB; losses "
+        f"{losses}; monitor equals its torch_ref twin; {smi}")
+    del state, step, opt
+    torch.cuda.empty_cache()
+    log(f"train_mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
     """Kernel, plain-version and library times at the main path's shapes,
     with the bound of each; ``by_path`` holds each path's launches."""
@@ -3646,6 +3873,10 @@ def main() -> int:
     by_path["train"] = phase_train(device, smi)["launches"]
     torch.cuda.empty_cache()
     by_path["train_long"] = phase_train_long(device, smi)["launches"]
+    torch.cuda.empty_cache()
+    with one_rank_group(device):
+        by_path["sharded"] = phase_sharded(device, records, smi)
+        by_path["train_mesh"] = phase_train_mesh(device, smi)
 
     rows = phase_numbers(device, cfg, params, records, tenants, by_path, est_out)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import platform
+from ..launch.shardings import distribute
 from ..tree import tree_flatten
 
 
@@ -112,12 +113,16 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, template, *, step: int | None = None, device=None):
+def restore_checkpoint(ckpt_dir: str, template, *, step: int | None = None, device=None,
+                       shardings=None):
     """Rebuild the tree.  ``template`` fixes the structure (and each
     leaf's shape); the chunk count on disk is independent of it
     (elastic).  Leaves become tensors on ``device``; None places each on
     its template leaf's device, or on the CUDA card where the template
-    leaf is not a tensor.  Returns (tree, manifest)."""
+    leaf is not a tensor.  With ``shardings`` (a matching tree of
+    ``launch.shardings.NamedSharding``, or None at a leaf) each such leaf
+    becomes a DTensor on its mesh, every rank keeping its own block of the
+    array it read (resharding on restore).  Returns (tree, manifest)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -129,9 +134,11 @@ def restore_checkpoint(ckpt_dir: str, template, *, step: int | None = None, devi
     leaves_t, treedef = tree_flatten(template)
     if len(leaves_t) != len(man.leaves):
         raise ValueError(f"template has {len(leaves_t)} leaves, checkpoint {len(man.leaves)}")
+    shard_leaves = (treedef.flatten_up_to(shardings) if shardings is not None
+                    else [None] * len(leaves_t))
 
     out = []
-    for meta, tmpl in zip(man.leaves, leaves_t):
+    for meta, tmpl, shd in zip(man.leaves, leaves_t, shard_leaves):
         parts = [np.load(os.path.join(d, f"leaf{meta['id']:05d}.c{k}.npy"))
                  for k in range(meta["chunks"])]
         arr = (parts[0] if len(parts) == 1 and not meta["shape"]
@@ -144,5 +151,8 @@ def restore_checkpoint(ckpt_dir: str, template, *, step: int | None = None, devi
         where = (torch.device(device) if device is not None
                  else tmpl.device if isinstance(tmpl, torch.Tensor)
                  else platform.default_device())
-        out.append(torch.from_numpy(np.array(arr, order="C")).to(where))
+        leaf = torch.from_numpy(np.array(arr, order="C")).to(where)
+        if shd is not None:
+            leaf = distribute(leaf, shd, src_data_rank=None)
+        out.append(leaf)
     return treedef.unflatten(out), man

@@ -120,12 +120,32 @@ def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     return torch.bitwise_xor(b1, b2).reshape(tuple(key.shape[:-1]) + shape)
 
 
-def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: float32 in [0, 1), on ``device``
-    (None: the key's device)."""
-    bits = random_bits(key, shape, device)
+# Elements of one key's draws computed at a time: the int64 words of a
+# slice, not of a whole optimizer leaf (a billion elements), are live.
+DRAW_CHUNK = 1 << 25
+
+
+def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     float_bits = torch.bitwise_or(bits >> 9, 0x3F800000).to(torch.int32)
     return float_bits.view(torch.float32) - 1.0
+
+
+def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1), on ``device``
+    (None: the key's device).  One key's draws are made DRAW_CHUNK
+    elements at a time (each element's bits depend only on its index)."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if key.ndim > 1 or n <= DRAW_CHUNK:
+        return _bits_to_unit(random_bits(key, shape, device))
+    device = _draw_device(key, device)
+    k1, k2 = _words(key, 1)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for start in range(0, n, DRAW_CHUNK):
+        iota = torch.arange(start, min(start + DRAW_CHUNK, n), dtype=torch.int64, device=device)
+        b1, b2 = threefry2x32(k1, k2, iota >> 32, torch.bitwise_and(iota, _MASK32))
+        out[start:start + iota.numel()] = _bits_to_unit(torch.bitwise_xor(b1, b2))
+    return out.reshape(shape)
 
 
 _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1

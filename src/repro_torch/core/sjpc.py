@@ -35,6 +35,7 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import platform
 from ..kernels import ops
@@ -234,6 +235,141 @@ def subtract(a: SJPCState, b: SJPCState) -> SJPCState:
     """Remove the sub-stream ``b`` sketched into ``a``.  ``step`` keeps
     ``a.step``: expiry removes data, not PRNG history."""
     return SJPCState(a.counters - b.counters, a.n - b.n, a.step)
+
+
+def all_reduce(state: SJPCState, group=None) -> SJPCState:
+    """Merge the ranks' sketches: ``counters`` and ``n`` summed over the
+    ``torch.distributed`` process ``group`` (None: the default group),
+    ``step`` kept, as the JAX package's ``psum`` over mesh axes.  Returns
+    new tensors; the input state is left as it was."""
+    counters, n = state.counters.clone(), state.n.clone()
+    dist.all_reduce(counters, group=group)
+    dist.all_reduce(n, group=group)
+    return SJPCState(counters, n, state.step)
+
+
+_SHARD_SALT = 0x5A4D
+
+
+class ShardedIngest:
+    """Sharded ingest with deferred merges.
+
+    Sketches are linear, so each record micro-batch is split across
+    ``num_shards`` shards, every shard folds its slice into a shard-local
+    *delta* sketch, and nothing crosses shards on the ingest path.
+    ``merged()`` pays the one cross-shard reduction for however many
+    micro-batches were absorbed.
+
+    Without a ``group`` the deltas are stacked (num_shards, L, t, w) on
+    ``device`` (None: the CUDA card) and each shard's update is one
+    :func:`update_fused` (or :func:`update`) call with its shard key: the
+    JAX package's ``vmap`` over the shard axis.  With a process ``group``
+    of ``num_shards`` ranks (``mapped``), every rank receives the whole
+    micro-batch and updates only its own shard's (1, L, t, w) delta, on its
+    own ``device``; ``merged()`` then runs :func:`all_reduce` over the
+    group.  Per-shard keys are ``fold_in(fold_in(PRNGKey(seed ^ 0x5A4D),
+    micro_batch), shard)``, so replaying a shard's slices with
+    :meth:`shard_key` through :func:`update` rebuilds it bit for bit.
+    ``impl`` names the kernel implementation (None: by device).
+    """
+
+    def __init__(self, cfg: SJPCConfig, params: SJPCParams, state: SJPCState | None = None, *,
+                 num_shards: int | None = None, use_fused: bool = True,
+                 impl: str | None = None, group=None, device=None):
+        if num_shards is None:
+            num_shards = dist.get_world_size(group) if group is not None else 1
+        self.num_shards = int(num_shards)
+        if self.num_shards < 1:
+            raise ValueError(f"num_shards must be at least 1, got {num_shards}")
+        if group is not None and dist.get_world_size(group) != self.num_shards:
+            raise ValueError(f"a group of {dist.get_world_size(group)} ranks cannot hold "
+                             f"{self.num_shards} shards")
+        self.device = platform.resolve(device)
+        self.cfg, self.params = cfg, params
+        self.base = state if state is not None else init(cfg, device=self.device)[1]
+        self.use_fused = use_fused
+        self.impl = impl
+        self.group = group
+        self.micro_batches = 0
+        self.merges = 0
+        self.deltas = self._zero_deltas()
+
+    @property
+    def mapped(self) -> bool:
+        """True when each shard is a rank of a process group (False: the
+        shards are stacked on one device, with identical numbers)."""
+        return self.group is not None
+
+    def _own_shards(self) -> range:
+        """The shards this process updates: its rank's, or all of them."""
+        if self.mapped:
+            rank = dist.get_rank(self.group)
+            return range(rank, rank + 1)
+        return range(self.num_shards)
+
+    def _zero_deltas(self) -> SJPCState:
+        k = len(self._own_shards())
+        return SJPCState(
+            counters=torch.zeros((k,) + tuple(self.base.counters.shape), dtype=torch.int32,
+                                 device=self.device),
+            n=torch.zeros((k,), dtype=torch.float32, device=self.device),
+            step=torch.zeros((k,), dtype=torch.int32, device=self.device))
+
+    def reset(self, base: SJPCState | None = None) -> None:
+        """Drop the accumulated deltas (and optionally rebase)."""
+        if base is not None:
+            self.base = base
+        self.deltas = self._zero_deltas()
+        self.micro_batches = 0
+
+    def ingest(self, values, key: torch.Tensor | None = None, row_mask=None) -> None:
+        """Absorb one micro-batch: values (B, d) uint32 data (numpy or
+        tensor), split across shards; rows pad to a shard multiple with
+        mask 0.  ``key`` (key data) replaces the micro-batch key."""
+        values = as_field_tensor(values, self.device)
+        B = values.shape[0]
+        if key is None:
+            key = self._batch_key(self.micro_batches)
+        mask = (torch.ones((B,), dtype=torch.int32, device=self.device) if row_mask is None
+                else torch.as_tensor(row_mask).to(device=self.device,
+                                                  dtype=torch.int32).reshape(B))
+        pad = (-B) % self.num_shards
+        if pad:
+            values = torch.nn.functional.pad(values, (0, 0, 0, pad))
+            mask = torch.nn.functional.pad(mask, (0, pad))
+        per = values.shape[0] // self.num_shards
+        shards = self._own_shards()
+        keys = prng.fold_in(key.cpu(), torch.tensor(list(shards))).to(self.device)
+        one = update_fused if self.use_fused else update
+        d = self.deltas
+        out = [one(self.cfg, self.params, SJPCState(d.counters[i], d.n[i], d.step[i]),
+                   values[j * per:(j + 1) * per], key=keys[i],
+                   row_mask=mask[j * per:(j + 1) * per], impl=self.impl)
+               for i, j in enumerate(shards)]
+        self.deltas = SJPCState(*(torch.stack(leaf) for leaf in zip(*out)))
+        self.micro_batches += 1
+
+    def merged(self) -> SJPCState:
+        """The deferred cross-shard reduction: base + the sum of the
+        deltas.  ``step`` is summed as :func:`merge` sums it, so later
+        updates never replay a shard's keys."""
+        self.merges += 1
+        d = self.deltas
+        delta = SJPCState(d.counters.sum(dim=0, dtype=torch.int32), d.n.sum(),
+                          d.step.sum(dtype=torch.int32))
+        if self.mapped:
+            step = delta.step.clone()
+            dist.all_reduce(step, group=self.group)
+            delta = all_reduce(delta, self.group)._replace(step=step)
+        return merge(self.base, delta)
+
+    def _batch_key(self, micro_batch: int) -> torch.Tensor:
+        return prng.fold_in(prng.PRNGKey(self.cfg.seed ^ _SHARD_SALT), micro_batch)
+
+    def shard_key(self, micro_batch: int, shard: int) -> torch.Tensor:
+        """The sampling key shard ``shard`` folded in for micro-batch
+        ``micro_batch`` (the offline-replay coordinate), as key data."""
+        return prng.fold_in(self._batch_key(micro_batch), shard)
 
 
 # ---------------------------------------------------------------------------

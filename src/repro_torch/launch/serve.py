@@ -1,9 +1,13 @@
-"""Serving steps on one card: prefill and single-token decode, and the
-greedy generation loop.
+"""Serving steps on one card: prefill and single-token decode, the
+greedy generation loop, and the sharded cache layouts.
 
-The JAX package's ``launch/serve.py`` without a mesh: the sharded cache
-layouts (``seq_sharded_mode``, ``cache_shardings``) come with a
-multi-card slice (ROADMAP queue 1).
+The JAX package's ``launch/serve.py``.  Two cache sharding regimes:
+  - ``decode_32k`` (batch >= data shards): batch over data axes, KV heads
+    over model.
+  - ``long_500k`` (batch < data shards): *sequence* over data axes.
+``seq_sharded_mode`` and ``cache_shardings`` give the layouts;
+``make_prefill`` and ``make_decode_step`` under a mesh, and
+sequence-sharded decode, wait for tensor parallelism (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -11,6 +15,12 @@ import torch
 
 from ..models import model as M
 from ..models.config import ArchConfig, Dims
+from . import shardings as SH
+from .mesh import data_shards
+
+
+def seq_sharded_mode(mesh, batch: int) -> bool:
+    return mesh is not None and batch < data_shards(mesh)
 
 
 def make_prefill(cfg: ArchConfig, dims: Dims, *, ssm_chunk: int = 128, attn_chunk: int = 2048,
@@ -73,3 +83,14 @@ def _rebase_cache(empty: M.Cache, pcache: M.Cache, prompt_len: int) -> M.Cache:
         return p
 
     return M.Cache(groups=merge(empty.groups, pcache.groups), lens=pcache.lens)
+
+
+def cache_shardings(mesh, cfg: ArchConfig, dims: Dims, batch: int, max_len: int,
+                    src_len: int = 0, dtype=torch.bfloat16, layout: str = "auto"):
+    """(abstract cache on the ``meta`` device, ``NamedSharding`` tree).
+
+    layout: "auto" picks seq-sharding when batch < data shards;
+    "batch"/"seq" force a regime."""
+    abstract = M.init_cache(cfg, dims, batch, max_len, src_len, dtype=dtype, device="meta")
+    seq = seq_sharded_mode(mesh, batch) if layout == "auto" else layout == "seq"
+    return abstract, SH.to_shardings(mesh, SH.cache_pspecs(mesh, abstract, seq_sharded=seq))

@@ -8,6 +8,8 @@ and apply, as in the JAX package's ``models/blocks.py``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import attention as attn
@@ -40,14 +42,17 @@ def init_layer(generator: torch.Generator, dims: Dims, spec, *, cross: bool = Fa
     return p
 
 
-def _ffn(params, x, dims: Dims, aux):
+def _ffn(params, x, dims: Dims, aux, dp=None):
     """The FFN sub-block; MoE layers add their aux losses into ``aux``
-    (when it is not None).  Returns (x, aux)."""
+    (when it is not None).  Under a data-parallel step (``dp``) an MoE
+    layer routes the global batch's groups.  Returns (x, aux)."""
     cfg = dims.cfg
     if "moe" in params:
-        h, moe_aux = moe_ffn(params["moe"], rmsnorm(params["mlp_norm"], x, cfg.rms_eps),
-                             num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
-                             capacity_factor=cfg.capacity_factor)
+        fn = functools.partial(moe_ffn, params["moe"], num_experts=cfg.num_experts,
+                               top_k=cfg.num_experts_per_tok,
+                               capacity_factor=cfg.capacity_factor)
+        h = rmsnorm(params["mlp_norm"], x, cfg.rms_eps)
+        h, moe_aux = fn(h) if dp is None else dp.moe(fn, h)
         if aux is not None:
             aux = {k: aux.get(k, 0.0) + v for k, v in moe_aux.items()}
         return x + h, aux
@@ -58,14 +63,15 @@ def _ffn(params, x, dims: Dims, aux):
 
 def apply_layer(params, x, dims: Dims, spec, *, positions, causal=True, enc_mem=None,
                 aux=None, ssm_chunk: int = ssm.DEFAULT_CHUNK, attn_chunk: int = 2048,
-                probs_dtype=torch.float32, impl: str | None = None):
+                probs_dtype=torch.float32, impl: str | None = None, dp=None):
     """Full-sequence layer (train / prefill).  Returns (x, cache_out, aux).
 
     cache_out carries whatever decode needs: this pass's attention K/V,
     the mamba final states, the cross-attention memory K/V.
     ``probs_dtype`` is the attention probabilities' type (the softmax
     itself is float32); ``impl`` names the flash-attention op's
-    implementation (None: by device).
+    implementation (None: by device); ``dp`` is a data-parallel step's
+    ``launch.data_parallel.DataParallel`` (None: one process).
     """
     kind, _ = spec
     cfg = dims.cfg
@@ -88,7 +94,7 @@ def apply_layer(params, x, dims: Dims, spec, *, positions, causal=True, enc_mem=
                                              impl=impl)
         cache_out["mk"], cache_out["mv"] = mk, mv
         x = x + out
-    x, aux = _ffn(params, x, dims, aux)
+    x, aux = _ffn(params, x, dims, aux, dp)
     return x, cache_out, aux
 
 

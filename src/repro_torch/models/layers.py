@@ -15,7 +15,10 @@ import torch
 
 def dense_init(generator: torch.Generator, shape, *, scale=None, device) -> torch.Tensor:
     """Truncated-normal fan-in init: N(0, 1) cut to [-2, 2], times ``scale``
-    (default 1 / sqrt(fan_in)); float32."""
+    (default 1 / sqrt(fan_in)); float32.  On the ``meta`` device nothing is
+    drawn: the leaf of an abstract parameter tree."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device="meta")
     fan_in = shape[0] if len(shape) > 1 else shape[-1]
     scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
     v = torch.empty(tuple(shape), dtype=torch.float32, device=generator.device)

@@ -102,7 +102,9 @@ def _unstack(tree, count: int) -> list:
 
 def init_params(generator: torch.Generator, cfg: ArchConfig, dims: Dims, device=None) -> dict:
     """Random float32 parameters drawn from ``generator`` (on its device),
-    placed on ``device`` (None: the CUDA card)."""
+    placed on ``device`` (None: the CUDA card).  On the ``meta`` device
+    nothing is drawn: the abstract tree, whose shapes and
+    :func:`param_axes` are those of the real one."""
     device = platform.resolve(device)
     params: dict[str, Any] = {
         "embed": init_embedding(generator, dims.vocab, cfg.d_model, device=device),
@@ -123,6 +125,50 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, dims: Dims, device=
         params["encoder"] = {"layers": _stack(layers),
                              "norm": init_rmsnorm(cfg.d_model, device=device)}
     return params
+
+
+# The logical axes of every parameter, by its module and name: the JAX
+# package's ``P(value, axes)`` annotations in ``models/{layers, attention,
+# ssm, moe}.py``.  Stacked layer leaves add a leading "layers" axis.
+_ATTN = {"wq": ("embed", "heads", "hd"), "wk": ("embed", "kv", "hd"),
+         "wv": ("embed", "kv", "hd"), "wo": ("heads", "hd", "embed_out"),
+         "bq": ("heads", "hd"), "bk": ("kv", "hd"), "bv": ("kv", "hd")}
+_MLP = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed_out")}
+_AXES = {
+    None: {"embed": ("vocab", "embed"), "lm_head": ("embed", "vocab"),
+           "final_norm": ("norm",), "norm": ("norm",), "mixer_norm": ("norm",),
+           "cross_norm": ("norm",), "mlp_norm": ("norm",)},
+    "attn": _ATTN, "cross": _ATTN, "mlp": _MLP, "shared": _MLP,
+    "mamba": {"wz": ("embed", "ssm_heads", "hd"), "wx": ("embed", "ssm_heads", "hd"),
+              "wB": ("embed", "ssm_group", "state"), "wC": ("embed", "ssm_group", "state"),
+              "wdt": ("embed", "ssm_heads"), "conv_x": ("ssm_heads", "hd", "conv"),
+              "conv_bc": ("conv_ch", "conv"), "A_log": ("ssm_heads",),
+              "dt_bias": ("ssm_heads",), "D": ("ssm_heads",), "norm": ("ssm_heads", "hd"),
+              "wo": ("ssm_heads", "hd", "embed_out")},
+    "moe": {"router": ("embed", "experts"), "w_gate": ("experts", "embed", "expert_mlp"),
+            "w_up": ("experts", "embed", "expert_mlp"),
+            "w_down": ("experts", "expert_mlp", "embed_out")},
+}
+
+
+def param_axes(params) -> dict:
+    """The logical-axes tree of a parameter tree (a tuple of axis names
+    per leaf): the second half of the JAX package's ``split_tree``, which
+    ``launch/shardings.py`` maps to mesh axes."""
+    def walk(tree, module, stacked):
+        if isinstance(tree, dict):
+            out = {}
+            for key, sub in tree.items():
+                if isinstance(sub, torch.Tensor):
+                    axes = _AXES[module if module in _AXES else None][key]
+                    if sub.ndim != len(axes) + stacked:
+                        raise ValueError(f"{key}: {sub.ndim} dims, axes {axes}")
+                    out[key] = ("layers",) * stacked + axes
+                else:
+                    out[key] = walk(sub, key, stacked or key in ("groups", "layers"))
+            return out
+        return type(tree)(walk(sub, module, stacked) for sub in tree)
+    return walk(params, None, False)
 
 
 def _cast(tree, dtype):
@@ -182,22 +228,25 @@ def _remat_wrap(fn, remat: str):
 
 def _run_groups(params, cfg, dims, x, positions, *, causal, enc_mem=None, remat="none",
                 ssm_chunk=128, collect_cache=False, attn_chunk=2048,
-                probs_dtype=torch.float32, impl=None):
+                probs_dtype=torch.float32, impl=None, dp=None):
     """Every layer of every group in order, each layer period under
     ``remat``.  Returns (x, aux, caches|None): the MoE aux losses summed
     over layers (None without experts), caches stacked per group as the
-    parameters are."""
+    parameters are.  Under ``dp`` a period gathers its parameters inside
+    its remat region."""
     aux = _zero_aux(x.device) if cfg.num_experts > 0 else None
     caches = [] if collect_cache else None
-    for (pspec, count), gparams in zip(layer_groups(cfg), params["groups"]):
+    for gi, ((pspec, count), gparams) in enumerate(zip(layer_groups(cfg), params["groups"])):
 
-        def body(x, aux, pslice, _pspec=pspec):
+        def body(x, aux, pslice, _pspec=pspec, _gi=gi):
+            if dp is not None:
+                pslice = dp.gather_layer(pslice, ("groups", _gi))
             outs = []
             for i, spec in enumerate(_pspec):
                 x, cache_out, aux = blocks.apply_layer(
                     pslice[i], x, dims, spec, positions=positions, causal=causal,
                     enc_mem=enc_mem, aux=aux, ssm_chunk=ssm_chunk, attn_chunk=attn_chunk,
-                    probs_dtype=probs_dtype, impl=impl)
+                    probs_dtype=probs_dtype, impl=impl, dp=dp)
                 outs.append(cache_out)
             return x, aux, (tuple(outs) if collect_cache else None)
 
@@ -212,7 +261,7 @@ def _run_groups(params, cfg, dims, x, positions, *, causal, enc_mem=None, remat=
     return x, aux, caches
 
 
-def _encode(params, cfg, dims, enc_feats, *, remat="none", impl=None):
+def _encode(params, cfg, dims, enc_feats, *, remat="none", impl=None, dp=None):
     """Encoder stack over precomputed frontend features (B, S_src, d):
     non-causal self-attention layers, each under ``remat``, then the
     encoder's norm."""
@@ -220,6 +269,8 @@ def _encode(params, cfg, dims, enc_feats, *, remat="none", impl=None):
     positions = _positions(x)
 
     def body(x, pslice):
+        if dp is not None:
+            pslice = dp.gather_layer(pslice, ("encoder", "layers"))
         x, _, _ = blocks.apply_layer(pslice[0], x, dims, ENCODER_SPEC, positions=positions,
                                      causal=False, impl=impl)
         return x
@@ -236,7 +287,8 @@ def _encode(params, cfg, dims, enc_feats, *, remat="none", impl=None):
 
 def forward(params, cfg: ArchConfig, dims: Dims, tokens, *, enc_feats=None,
             compute_dtype=torch.bfloat16, remat: str = "full", ssm_chunk: int = 128,
-            attn_chunk: int = 2048, probs_dtype=torch.float32, impl: str | None = None):
+            attn_chunk: int = 2048, probs_dtype=torch.float32, impl: str | None = None,
+            dp=None):
     """Teacher-forced full-sequence forward.  tokens (B, S) integers.
 
     Returns (logits (B, S, vocab_padded) float32, aux): aux holds the MoE
@@ -246,10 +298,15 @@ def forward(params, cfg: ArchConfig, dims: Dims, tokens, *, enc_feats=None,
     the encoder-decoder's frontend features; ``remat`` is one of
     :data:`REMAT_MODES` (others raise ``ValueError``); ``probs_dtype`` the
     attention probabilities' type; ``impl`` as for :func:`prefill`.
+    ``dp`` (a ``launch.data_parallel.DataParallel``) runs a data-parallel
+    rank: ``params`` and ``tokens`` are the rank's own blocks and rows,
+    gathered as the layers need them.
     """
     if remat not in REMAT_MODES:
         raise ValueError(remat)
     wp = _cast(params, compute_dtype)
+    if dp is not None:
+        wp = dp.gather_top(wp)
     device = wp["embed"].device
     tokens = torch.as_tensor(tokens, device=device)
     x = embed(wp["embed"], tokens)
@@ -259,10 +316,10 @@ def forward(params, cfg: ArchConfig, dims: Dims, tokens, *, enc_feats=None,
             raise ValueError(f"{cfg.name} is an encoder-decoder: forward needs enc_feats")
         enc_mem = _encode(wp, cfg, dims,
                           torch.as_tensor(enc_feats, device=device).to(compute_dtype),
-                          remat=remat, impl=impl)
+                          remat=remat, impl=impl, dp=dp)
     x, aux, _ = _run_groups(wp, cfg, dims, x, _positions(tokens), causal=True,
                             enc_mem=enc_mem, remat=remat, ssm_chunk=ssm_chunk,
-                            attn_chunk=attn_chunk, probs_dtype=probs_dtype, impl=impl)
+                            attn_chunk=attn_chunk, probs_dtype=probs_dtype, impl=impl, dp=dp)
     x = rmsnorm(wp["final_norm"], x, cfg.rms_eps)
     lg = _logits(wp, cfg, x).to(torch.float32)
     return lg, (aux if aux is not None else _zero_aux(device))

@@ -82,12 +82,16 @@ def moe_capacity(group: int, top_k: int, capacity_factor: float, num_experts: in
 
 
 def moe_ffn(params, x, *, num_experts: int, top_k: int, capacity_factor: float,
-            group: int = GROUP):
+            group: int | None = None, mean=None):
     """x (B, S, d) -> (out (B, S, d), {"moe_lb_loss", "moe_z_loss"} f32
-    scalars).  The B * S tokens form groups of ``min(group, B * S)``."""
+    scalars).  The B * S tokens form groups of ``min(group, B * S)``
+    (``group`` None: :data:`GROUP`).
+    ``mean`` maps the aux losses' means over these tokens to means over a
+    larger batch (a data-parallel step's ranks; None: these tokens are
+    the batch)."""
     b, s, d = x.shape
     t = b * s
-    group = min(group, t)
+    group = min(GROUP if group is None else group, t)
     if t % group:
         raise ValueError(f"{t} tokens do not split into groups of {group}")
     g = t // group
@@ -111,6 +115,8 @@ def moe_ffn(params, x, *, num_experts: int, top_k: int, capacity_factor: float,
     # aux: load-balance (Switch eq. 4-6) + router z-loss
     me = probs.mean(dim=(0, 1))                                       # (E,)
     one = F.one_hot(idx[..., 0], num_experts).to(torch.float32).mean(dim=(0, 1))
-    lb_loss = num_experts * torch.sum(me * one)
     z_loss = torch.mean(torch.logsumexp(router_logits, dim=-1) ** 2)
+    if mean is not None:
+        me, one, z_loss = mean(me), mean(one), mean(z_loss)
+    lb_loss = num_experts * torch.sum(me * one)
     return out, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}

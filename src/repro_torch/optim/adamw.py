@@ -20,6 +20,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from ..tree import tree_flatten, tree_map
 from ._libm import powf
@@ -76,8 +78,42 @@ def clip_by_global_norm(tree, max_norm: float):
     return tree_map(lambda g: g * scale, tree), norm
 
 
-def _clip_in_place(grads: list, max_norm: float) -> torch.Tensor:
-    norm = torch.sqrt(sum(_square_sum(g) for g in grads))
+def local(x):
+    """A rank's own block of a DTensor (a view: in-place updates reach
+    it); a plain tensor as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _split_dims(p) -> list[bool]:
+    return [isinstance(pl, Shard) for pl in p.placements]
+
+
+def square_sums(params: list, grads: list) -> list[torch.Tensor]:
+    """Each gradient leaf's sum of squares over its whole tensor.  ``grads``
+    are the ranks' own blocks of ``params``' leaves: where a parameter is a
+    DTensor split over mesh dims, the blocks' partial sums are added over
+    those dims' groups (one ``all_reduce`` of all leaves' sums a dim)."""
+    sums = [_square_sum(g) for g in grads]
+    meshes = {p.device_mesh for p in params if isinstance(p, DTensor) and any(_split_dims(p))}
+    if not meshes:
+        return sums
+    if len(meshes) > 1:
+        raise ValueError("the parameters lie on more than one mesh")
+    mesh = meshes.pop()
+    vec = torch.stack(sums)
+    for dim in range(mesh.ndim):
+        if mesh.size(dim) == 1:
+            continue
+        split = torch.tensor([isinstance(p, DTensor) and _split_dims(p)[dim] for p in params],
+                             device=vec.device)
+        # a leaf replicated over this dim counts once: rank 0's copy
+        vec = torch.where(split | (mesh.get_local_rank(dim) == 0), vec, 0.0)
+        dist.all_reduce(vec, group=mesh.get_group(dim))
+    return list(vec.unbind())
+
+
+def _clip_in_place(grads: list, max_norm: float, params: list) -> torch.Tensor:
+    norm = torch.sqrt(sum(square_sums(params, grads)))
     scale = _clip_scale(norm, max_norm)
     for g in grads:
         g.mul_(scale)
@@ -104,22 +140,22 @@ def make_adamw(lr_fn, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     def init(params):
         leaves, _ = tree_flatten(params)
         device = leaves[0].device if leaves else None
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                           m=tree_map(zeros, params), v=tree_map(zeros, params))
 
     @torch.no_grad()
     def update(grads, state: AdamWState, params):
         leaves, treedef = tree_flatten(params)
-        gl = [g.to(torch.float32).contiguous() for g in treedef.flatten_up_to(grads)]
+        gl = [local(g).to(torch.float32).contiguous() for g in treedef.flatten_up_to(grads)]
         ml = treedef.flatten_up_to(state.m)
         vl = treedef.flatten_up_to(state.v)
-        gnorm = _clip_in_place(gl, clip_norm)
-        step = state.step + 1
+        gnorm = _clip_in_place(gl, clip_norm, leaves)
+        step = local(state.step) + 1
         lr = lr_fn(step).to(step.device)
         bc1, bc2 = _scalars(step.device, *bias_corrections(int(step), b1, b2))
         for p, g, m, v in zip(leaves, gl, ml, vl):
-            pf, gf, mf, vf = _flat(p), _flat(g), _flat(m), _flat(v)
+            pf, gf, mf, vf = _flat(local(p)), _flat(g), _flat(local(m)), _flat(local(v))
             for sl in _slices(pf.numel()):
                 gs, ms, vs, ps = gf[sl], mf[sl], vf[sl], pf[sl]
                 ms.mul_(b1).add_(gs * (1 - b1))

@@ -5,15 +5,15 @@ scaling to int8 codes (the JAX package's ``optim/compression.py``).
     err = (g + err) - decompress_int8(g_q, scales, g.shape)
 
 Codes and scales equal the JAX package's bit for bit (its division by
-127 is XLA's product with the float32 reciprocal).  ``compressed_mean``,
-the int8 payload's mean over a mesh axis, needs a collective and waits
-for the multi-card slice (ROADMAP queue 1).
+127 is XLA's product with the float32 reciprocal).  ``compressed_mean``
+is the int8 payload's mean over the ranks of a process group.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ._libm import recip
@@ -35,3 +35,22 @@ def compress_int8(x):
 def decompress_int8(codes, scales, shape):
     flat = (codes.to(torch.float32) * scales).reshape(-1)
     return flat[:math.prod(shape)].reshape(tuple(shape))
+
+
+def compressed_mean(x, group=None):
+    """The mean of ``x`` over the ranks of ``group`` (None: the default
+    group) from an int8 payload: each rank quantizes locally, the codes
+    are summed as int32 (exact) and the scales summed, and the mean is
+    dequantized with the mean scale.  The scale mean makes this an
+    upper-bound reconstruction; error feedback at the caller absorbs the
+    difference."""
+    x = torch.as_tensor(x)
+    codes, scales = compress_int8(x)
+    csum = codes.to(torch.int32)
+    ssum = scales.clone()
+    dist.all_reduce(csum, group=group)
+    dist.all_reduce(ssum, group=group)
+    n = torch.tensor(float(dist.get_world_size(group)), dtype=torch.float32, device=x.device)
+    avg_scale = ssum / n
+    flat = (csum.to(torch.float32) * avg_scale / n).reshape(-1)
+    return flat[:x.numel()].reshape(x.shape)

@@ -124,7 +124,7 @@ def make_q8adam(lr_fn, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         gl = [g.to(torch.float32).contiguous() for g in treedef.flatten_up_to(grads)]
         ml = treedef.flatten_up_to(state.m)
         vl = treedef.flatten_up_to(state.v)
-        gnorm = _clip_in_place(gl, clip_norm)
+        gnorm = _clip_in_place(gl, clip_norm, leaves)
         step = state.step + 1
         lr = lr_fn(step).to(step.device)
         n = int(step)

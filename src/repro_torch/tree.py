@@ -115,39 +115,44 @@ class TreeDef:
 _END = object()
 
 
-def tree_flatten(tree) -> tuple[list, TreeDef]:
-    """(leaves in ``jax.tree_util`` order, structure)."""
+def tree_flatten(tree, is_leaf: Callable | None = None) -> tuple[list, TreeDef]:
+    """(leaves in ``jax.tree_util`` order, structure).  A subtree for
+    which ``is_leaf`` is true is a leaf, as in JAX."""
     leaves: list = []
-    return leaves, _flatten(tree, leaves)
+    return leaves, _flatten(tree, leaves, is_leaf)
 
 
-def _flatten(tree, leaves: list) -> TreeDef:
+def _flatten(tree, leaves: list, is_leaf) -> TreeDef:
+    if is_leaf is not None and is_leaf(tree):
+        leaves.append(tree)
+        return TreeDef("leaf")
     if tree is None:
         return TreeDef("none")
     if isinstance(tree, dict):
         keys = tuple(sorted(tree))
-        return TreeDef("dict", keys, tuple(_flatten(tree[k], leaves) for k in keys))
+        return TreeDef("dict", keys, tuple(_flatten(tree[k], leaves, is_leaf) for k in keys))
     if _is_namedtuple(tree):
-        return TreeDef("namedtuple", type(tree), tuple(_flatten(x, leaves) for x in tree))
+        return TreeDef("namedtuple", type(tree),
+                       tuple(_flatten(x, leaves, is_leaf) for x in tree))
     if isinstance(tree, (list, tuple)):
         kind = "list" if isinstance(tree, list) else "tuple"
-        return TreeDef(kind, None, tuple(_flatten(x, leaves) for x in tree))
+        return TreeDef(kind, None, tuple(_flatten(x, leaves, is_leaf) for x in tree))
     leaves.append(tree)
     return TreeDef("leaf")
 
 
-def tree_leaves(tree) -> list:
-    return tree_flatten(tree)[0]
+def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
+    return tree_flatten(tree, is_leaf)[0]
 
 
 def tree_structure(tree) -> TreeDef:
     return tree_flatten(tree)[1]
 
 
-def tree_map(fn: Callable, tree, *rest) -> Any:
+def tree_map(fn: Callable, tree, *rest, is_leaf: Callable | None = None) -> Any:
     """``fn`` over the leaves of ``tree`` (and the matching subtrees of
     ``rest``, which hold its structure as a prefix); dicts come back with
     sorted keys, as in JAX."""
-    leaves, treedef = tree_flatten(tree)
+    leaves, treedef = tree_flatten(tree, is_leaf)
     others = [treedef.flatten_up_to(r) for r in rest]
     return treedef.unflatten(fn(*xs) for xs in zip(leaves, *others))

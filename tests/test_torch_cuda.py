@@ -242,6 +242,29 @@ def test_update_fused_reads_nothing_back_to_the_host(cuda):
     assert int(state.step) == 2 and float(state.n) == 8192.0
 
 
+@pytest.mark.parametrize("use_fused", [True, False])
+def test_sharded_ingest_equals_plain(cuda, use_fused):
+    """``ShardedIngest`` at 4 shards on the card, a masked and a ragged
+    micro-batch: every shard's delta and the merged state through the
+    kernels equal the ``impl="torch_ref"`` executor's, bit for bit."""
+    cfg = sjpc.SJPCConfig(d=6, s=3, ratio=0.5, width=1024, depth=3, seed=7)
+    params, _ = sjpc.init(cfg, device=cuda)
+    rng = np.random.default_rng(26)
+    kernel, plain = (sjpc.ShardedIngest(cfg, params, num_shards=4, use_fused=use_fused,
+                                        impl=impl, device=cuda)
+                     for impl in (None, "torch_ref"))
+    for rows in (4096, 1001):
+        batch = rng.integers(0, 2**32, size=(rows, cfg.d), dtype=np.uint32)
+        mask = (rng.random(rows) < 0.8).astype(np.int32)
+        kernel.ingest(batch, row_mask=mask)
+        plain.ingest(batch, row_mask=mask)
+    for got, want in zip(kernel.deltas, plain.deltas):
+        assert torch.equal(got, want)
+    for got, want in zip(kernel.merged(), plain.merged()):
+        assert torch.equal(got, want)
+    assert int(plain.deltas.step.sum()) == 8
+
+
 @pytest.mark.parametrize("N,L,t,w", [(1, 1, 1, 64), (3, 4, 2, 1024), (2, 2, 5, 65536)])
 def test_fused_query_equals_plain(cuda, N, L, t, w):
     rng = np.random.default_rng(N * w)

@@ -35,6 +35,7 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert, tree  # noqa: E402
 from repro_torch.data.loader import to_device, token_batches  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.launch.mesh import AbstractMesh  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import model as tM  # noqa: E402
 from repro_torch.models.config import ArchConfig as TArch  # noqa: E402
@@ -277,8 +278,10 @@ def test_unknown_remat_and_mesh_raise():
     with pytest.raises(ValueError):
         tM.forward(params, tcfg, tdims, torch.zeros((1, 4), dtype=torch.int32),
                    remat="offload")
+    # a mesh whose model axis is larger than 1 waits for tensor parallelism
     with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        ttrain.make_train_step(tcfg, tdims, make_adamw(constant(1e-3)), mesh=object())
+        ttrain.make_train_step(tcfg, tdims, make_adamw(constant(1e-3)),
+                               mesh=AbstractMesh((1, 2), ("data", "model")))
 
 
 # The train step above CHUNKED_THRESHOLD (patched to 8 in both packages):
