@@ -114,6 +114,22 @@ w=1024, t=3):
   ``torch_ref`` twin; at 4 of 36 layers two mesh steps against two
   one-process steps with the same optimizer, losses and every parameter
   and moment leaf bit for bit;
+* serving under a mesh (``serve_mesh`` phase, path ``serve_mesh``):
+  ``make_prefill(mesh=)`` and ``make_decode_step(mesh=)``.  (a) qwen2.5-3b
+  at full width and depth, f32, the serve phase's 4 x 10,240 prompts and 8
+  decode steps on a (data=1, model=1) mesh of one NCCL rank, bit for bit
+  against the meshless calls; (b) two spawned ranks on the card over gloo
+  (NCCL refuses two ranks on one device), (data=1, model=2): qwen2.5-3b on
+  one 10,240-token prompt and deepseek-moe-16b cut to 8 layers, each rank
+  on its blocks of the seed's parameters; (c) the same ranks on (data=2,
+  model=1), qwen2.5-3b cut to 4 layers with the cache split by sequence.
+  (a) runs while the ranks run (b) and (c), so its times are taken beside
+  them.
+  (b) and (c) against the one-process run of the same Dims: logits and
+  each rank's block of the cache within 1e-4 of max |x|, tokens equal,
+  every prefill attention on the f32 flash kernel; their collectives
+  cross host memory, so their times are not a speed of tensor
+  parallelism;
 * the plugin kinds (``plugins`` phase): ``examples/plugins_torch`` loaded
   through ``load_plugins``, a service of 16 ipf, 16 theta_kmv and 16 SJPC
   tenants of the paper's group (4,096 records each per epoch, 6 epochs,
@@ -431,6 +447,28 @@ SHARDED_MICRO = 1 << 16
 # step against the one-process step, MESH_CHECK_STEPS steps, bit for bit.
 MESH_STEPS = 4
 MESH_CHECK_STEPS = 2
+# The serve_mesh phase: make_prefill(mesh=) and make_decode_step(mesh=).
+# (a) the serve phase's qwen2.5-3b, f32, on its 4 x 10,240 prompts and
+# SERVE_MESH_STEPS decode steps on a (data=1, model=1) mesh of one NCCL
+# rank, bit for bit against the meshless calls; (b) two ranks on the one
+# card over gloo (NCCL refuses two ranks on one device), (data=1,
+# model=2): qwen2.5-3b on one 10,240-token prompt, then deepseek-moe-16b
+# cut to MOE_LAYERS layers (32 of its 64 experts a rank); (c) the same two
+# ranks on (data=2, model=1), qwen2.5-3b cut to SERVE_SEQ_LAYERS layers on
+# that prompt with the cache split by sequence.  (b) and (c) are held against the one-process run of
+# the same Dims within LOGITS_RTOL / KV_RTOL; their collectives cross
+# host memory, so their times are correctness runs, not a speed of tensor
+# parallelism.
+SERVE_MESH_STEPS = 8
+SERVE_MESH_WORLD = 2
+SERVE_MESH_TIMEOUT_S = 600
+# (c) cuts qwen2.5-3b's depth to 4 of 36 layers: each of its passes
+# gathers the FSDP-placed f32 weights (12.3 GB at full depth) over gloo,
+# which carries them through host memory between two ranks on one H100 at
+# 1 GB/s or less, so at full depth a decode step took 10.57 s, and at 12
+# layers 4.8-8.9 s (PERF.md).  (a) runs in the parent while the ranks run
+# (b) and (c).
+SERVE_SEQ_LAYERS = 4
 
 KERNELS = {"fused_ingest": kfi, "sample_weights": ksw, "fingerprint": kfp,
            "fused_query": kfq, "fused_pairs": kpairs, "sketch_update": ksu,
@@ -3617,6 +3655,272 @@ def phase_train_mesh(device, smi: str) -> dict[str, int]:
     return launches
 
 
+def serve_mesh_run(cfg, dims, params, prompts, mesh, cache_device, routing=None):
+    """``make_prefill(mesh=)``, the re-base into the rank's cache block and
+    SERVE_MESH_STEPS greedy ``make_decode_step(mesh=)`` steps (``mesh``
+    None: the meshless calls): logits of every step, tokens, the prefill's
+    cache, the final cache, prefill seconds and decode seconds a step."""
+    b, s = prompts.shape
+    record = routing if routing is not None else contextlib.nullcontext
+    prefill = serve.make_prefill(cfg, dims, mesh, compute_dtype=torch.float32)
+    decode = serve.make_decode_step(cfg, dims, mesh, compute_dtype=torch.float32)
+    with record():
+        prefill_s, (logits, pcache) = synced_s(lambda: prefill(params, prompts))
+        empty = serve.init_cache(cfg, dims, b, s + SERVE_MESH_STEPS, 0, mesh,
+                                 dtype=torch.float32, device=cache_device)
+        cache = serve._rebase_cache(empty, pcache, s,
+                                    seq_block=None if mesh is None else serve.seq_block(mesh, b))
+        out = {"logits": [logits], "prefill_cache": pcache.groups, "prefill_s": prefill_s,
+               "step_s": []}
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        toks = [tok]
+        for _ in range(SERVE_MESH_STEPS):
+            seconds, (logits, cache) = synced_s(lambda: decode(params, tok, cache))
+            out["step_s"].append(seconds)
+            out["logits"].append(logits)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            toks.append(tok)
+    out["tokens"], out["cache"] = torch.cat(toks, dim=1), cache.groups
+    return out
+
+
+def serve_mesh_one_rank(device, smi: str) -> dict:
+    """(a): qwen2.5-3b at full width and depth through ``make_prefill(mesh=)``
+    and ``make_decode_step(mesh=)`` on a (data=1, model=1) mesh of the one
+    NCCL rank (path ``serve_mesh``), against the meshless calls on the same
+    parameters and prompts bit for bit: every step's logits, the tokens,
+    every layer's prefill K/V and the final cache."""
+    cfg = configs.get(SERVE_ARCH)
+    dims = compute_dims(cfg, tp=1)
+    params = M.init_params(torch.Generator(device=device).manual_seed(SERVE_SEED), cfg, dims,
+                           device=device)
+    prompts = torch.from_numpy(serve_prompts(cfg.vocab_size)).to(device)
+    mesh = make_debug_mesh(1, 1, device_type="cuda")
+    want = serve_mesh_run(cfg, dims, params, prompts, None, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    got = serve_mesh_run(cfg, dims, params, prompts, mesh, device)
+    launches = read_counts("serve_mesh (a)", ("flash_attention",))
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    require(launches["flash_attention"] == cfg.num_layers and sum(launches.values())
+            == cfg.num_layers, f"serve_mesh (a): launches {launches}, predicted "
+            f"{cfg.num_layers} f32 flash_attention")
+    pairs = (list(zip(got["logits"], want["logits"])) + [(got["tokens"], want["tokens"])]
+             + list(zip(tree_leaves(got["prefill_cache"]), tree_leaves(want["prefill_cache"])))
+             + list(zip(tree_leaves(got["cache"]), tree_leaves(want["cache"]))))
+    require(all(a.dtype == b.dtype and equal(a, b) for a, b in pairs),
+            "serve_mesh (a): the (1, 1) mesh's serving differs from the meshless calls'")
+    decode_ms = float(np.median(got["step_s"])) * 1e3
+    log(f"serve_mesh (a): {SERVE_ARCH} ({cfg.num_layers} layers), f32, {prompts.shape[0]} x "
+        f"{prompts.shape[1]} prompt tokens + {SERVE_MESH_STEPS} decode steps on a (data=1, "
+        f"model=1) NCCL mesh: {len(pairs)} logits, token, prefill K/V and cache tensors equal "
+        f"the meshless calls' bit for bit; {launches['flash_attention']} flash_attention "
+        f"launches, all {registry.CUDA_SM90}; prefill {got['prefill_s'] * 1e3:.1f} ms "
+        f"(meshless {want['prefill_s'] * 1e3:.1f}), decode {decode_ms:.3f} ms a step "
+        f"(meshless {float(np.median(want['step_s'])) * 1e3:.3f}), median of "
+        f"{SERVE_MESH_STEPS}, timed while the ranks of (b) and (c) run; peak allocated "
+        f"{peak:.2f} GB; {smi}")
+    del params, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_case(rank: int, cfg, mesh_shape, prompt, moe: bool, device) -> dict:
+    """One model on this rank of a two-rank mesh: the rank's blocks cut from
+    the seed's full parameters (one rank drawing at a time), the mesh run
+    between a reset and a read of the counts, then the one-process run of
+    the same Dims on the redrawn full parameters (with ``moe``, taking the
+    mesh run's expert choices); the logits of every step, the tokens and
+    the rank's block of the final cache held against it."""
+    t0 = time.perf_counter()
+    dims = compute_dims(cfg, tp=mesh_shape[1])
+    mesh = make_debug_mesh(*mesh_shape, device_type=device.type)
+    draw = lambda: M.init_params(torch.Generator(device=device).manual_seed(SERVE_SEED),  # noqa
+                                 cfg, dims, device=device)
+    for turn in range(SERVE_MESH_WORLD):
+        if turn == rank:
+            full = draw()
+            blocks = SH.local_blocks(full, SH.param_shardings(mesh, M.param_axes(full)), rank)
+            del full
+            torch.cuda.empty_cache()
+        dist.barrier()
+    log(f"serve_mesh rank {rank}: {cfg.name} on {mesh_shape}: blocks cut at "
+        f"{time.perf_counter() - t0:.1f} s")
+    routing = PinnedRouting() if moe else None
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    got = serve_mesh_run(cfg, dims, blocks, prompt, mesh, device,
+                         routing=routing.record if moe else None)
+    torch.cuda.synchronize()
+    launches, dispatch = current_counts()
+    log(f"serve_mesh rank {rank}: {cfg.name} on {mesh_shape}: mesh run done at "
+        f"{time.perf_counter() - t0:.1f} s (prefill {got['prefill_s']:.1f} s)")
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    del blocks, got["prefill_cache"]
+    torch.cuda.empty_cache()
+    b, s = prompt.shape
+    _, shard = serve.cache_shardings(mesh, cfg, dims, b, s + SERVE_MESH_STEPS,
+                                     dtype=torch.float32)
+    # one rank at a time: both ranks' full deepseek-moe-16b parameters (18.4
+    # GB each) and one-process runs beside each other ran an H100 80GB out
+    # of memory
+    for turn in range(SERVE_MESH_WORLD):
+        if turn == rank:
+            with oracle_calls():
+                want = serve_mesh_run(cfg, dims, draw(), prompt, None, device,
+                                      routing=routing.replay if moe else None)
+            kv_rel = cache_rel(got["cache"], SH.local_blocks(want["cache"], shard.groups, rank))
+            logits_rel = max(float((g - w).abs().max() / w.abs().max())
+                             for g, w in zip(got["logits"], want["logits"]))
+            ref_tokens, ref_prefill_ms = want["tokens"].cpu(), want["prefill_s"] * 1e3
+            del want
+            torch.cuda.empty_cache()
+        dist.barrier()
+    log(f"serve_mesh rank {rank}: {cfg.name} on {mesh_shape}: one-process run done at "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "dispatch": dispatch, "peak_gb": peak,
+            "prefill_ms": got["prefill_s"] * 1e3,
+            "decode_ms": float(np.median(got["step_s"])) * 1e3,
+            "ref_prefill_ms": ref_prefill_ms, "logits_rel": logits_rel, "kv_rel": max(kv_rel),
+            "kv_leaves": len(kv_rel), "tokens": got["tokens"].cpu(), "ref_tokens": ref_tokens,
+            "flips": None if routing is None else (routing.flips, routing.tokens)}
+
+
+def serve_mesh_rank(rank: int, store: str, out: str) -> None:
+    """A rank of the serve_mesh phase's (b) and (c) (a spawned process):
+    gloo over CUDA tensors, the kernels loaded from ``phase_build``'s
+    libraries; its results, or its error, to ``<out>/rank<r>.pt``."""
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(store, SERVE_MESH_WORLD), rank=rank,
+                            world_size=SERVE_MESH_WORLD)
+    result: dict = {}
+    try:
+        t0 = time.perf_counter()
+        digest = _build._digest()
+        result["libraries_built"] = all((_build.BUILD_DIR / f"{name}-{digest}.so").exists()
+                                        for name in _build.SOURCES)
+        probe = torch.full((4,), float(rank + 1), device=device)
+        dist.all_reduce(probe)
+        parts = [torch.empty_like(probe) for _ in range(SERVE_MESH_WORLD)]
+        dist.all_gather(parts, probe * (rank + 1))
+        result["gloo_cuda"] = (probe.device == device and float(probe[0]) == 3.0
+                               and [float(p[0]) for p in parts] == [3.0, 6.0])
+        qwen = configs.get(SERVE_ARCH)
+        moe = dataclasses.replace(configs.get(MOE_ARCH), num_layers=MOE_LAYERS)
+        for key, cfg, shape, routed in (
+                ("tp_qwen", qwen, (1, SERVE_MESH_WORLD), False),
+                ("tp_moe", moe, (1, SERVE_MESH_WORLD), True),
+                ("seq_qwen", dataclasses.replace(qwen, num_layers=SERVE_SEQ_LAYERS),
+                 (SERVE_MESH_WORLD, 1), False)):
+            prompt = torch.from_numpy(serve_prompts(cfg.vocab_size)[:1]).to(device)
+            result[key] = mesh_case(rank, cfg, shape, prompt, routed, device)
+            torch.cuda.empty_cache()
+        result["seconds"] = time.perf_counter() - t0
+    except Exception as err:  # noqa: BLE001 -- handed to the parent, which fails with it
+        import traceback
+        result["error"] = f"{err!r}\n{traceback.format_exc()}"
+    finally:
+        torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+
+
+def serve_mesh_ranks(smi: str, during):
+    """(b) and (c) on two spawned ranks, ``during()`` in this process
+    meanwhile: (its result, the ranks' launch counts summed)."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(serve_mesh_rank, args=(os.path.join(tmp, "store"), tmp),
+                                 nprocs=SERVE_MESH_WORLD, join=False, start_method="spawn")
+        deadline = time.monotonic() + SERVE_MESH_TIMEOUT_S
+        try:
+            beside = during()
+            while not ctx.join(timeout=5):
+                require(time.monotonic() < deadline,
+                        f"serve_mesh: ranks still running after {SERVE_MESH_TIMEOUT_S} s")
+                # a rank that failed has written its error; the other may be
+                # waiting for it in a collective
+                for r in range(SERVE_MESH_WORLD):
+                    path = os.path.join(tmp, f"rank{r}.pt")
+                    if os.path.exists(path) and not ctx.processes[r].is_alive():
+                        res = torch.load(path, weights_only=False)
+                        require("error" not in res, f"serve_mesh rank {r}: {res.get('error')}")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(timeout=30)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(SERVE_MESH_WORLD)]
+    for r, res in enumerate(ranks):
+        require("error" not in res, f"serve_mesh rank {r}: {res.get('error')}")
+        require(res["libraries_built"], f"serve_mesh rank {r}: a kernel library was missing")
+        require(res["gloo_cuda"], f"serve_mesh rank {r}: gloo's all-reduce or all-gather of "
+                                  f"CUDA tensors gave another sum")
+    total = dict.fromkeys(COUNTS, 0)
+    parts = (("tp_qwen", "(b) (data=1, model=2)", SERVE_ARCH, configs.get(SERVE_ARCH).num_layers),
+             ("tp_moe", "(b) (data=1, model=2)", MOE_ARCH, MOE_LAYERS),
+             ("seq_qwen", "(c) (data=2, model=1), cache split by sequence", SERVE_ARCH,
+              SERVE_SEQ_LAYERS))
+    for key, what, arch, flash in parts:
+        for r, res in enumerate(ranks):
+            out = res[key]
+            kernels = {dict(labels)["kernel"]: (dict(labels)["impl"], n)
+                       for labels, n in out["dispatch"].items()}
+            require(out["launches"]["flash_attention"] == flash
+                    and sum(out["launches"].values()) == flash
+                    and kernels == {"flash_attention": (registry.CUDA_SM90, float(flash))},
+                    f"serve_mesh {what} {arch} rank {r}: launches {out['launches']}, "
+                    f"dispatches {out['dispatch']}; expected {flash} f32 flash_attention on "
+                    f"{registry.CUDA_SM90}")
+            require(out["logits_rel"] <= LOGITS_RTOL and out["kv_rel"] <= KV_RTOL,
+                    f"serve_mesh {what} {arch} rank {r}: logits {out['logits_rel']}, "
+                    f"K/V {out['kv_rel']} of max |x| from the one-process run")
+            require(torch.equal(out["tokens"], out["ref_tokens"])
+                    and torch.equal(out["tokens"], ranks[0][key]["tokens"]),
+                    f"serve_mesh {what} {arch} rank {r}: tokens differ from the one-process run")
+            for name, n in out["launches"].items():
+                total[name] += n
+            flips = ("" if out["flips"] is None else
+                     f"; the one-process run took the mesh run's expert choices, its own "
+                     f"top-k would have chosen otherwise for {out['flips'][0]} of "
+                     f"{out['flips'][1]} (token, layer) pairs")
+            log(f"serve_mesh {what}, rank {r}: {arch} ({flash} layers), f32, 1 x {SERVE_PROMPT} "
+                f"prompt tokens + "
+                f"{SERVE_MESH_STEPS} decode steps on gloo over CUDA tensors (a correctness run: "
+                f"its collectives cross host memory, not a speed of tensor parallelism): "
+                f"prefill {out['prefill_ms']:.1f} ms (one-process run "
+                f"{out['ref_prefill_ms']:.1f}), decode {out['decode_ms']:.3f} ms a step; peak "
+                f"allocated {out['peak_gb']:.2f} GB; logits within {out['logits_rel']:.3g} and "
+                f"{out['kv_leaves']} per-layer K/V leaves of the rank's block within "
+                f"{out['kv_rel']:.3g} of max |x| of the one-process run (limits {LOGITS_RTOL}, "
+                f"{KV_RTOL}); tokens equal ({out['tokens'][0].tolist()}); "
+                f"{out['launches']['flash_attention']} flash_attention launches, all "
+                f"{registry.CUDA_SM90}{flips}; {smi}")
+    log(f"serve_mesh (b) and (c): the two ranks took {ranks[0]['seconds']:.1f} / "
+        f"{ranks[1]['seconds']:.1f} s after start; gloo carried every CUDA all-reduce and "
+        f"all-gather; the kernels were loaded from the build, not rebuilt")
+    return beside, total
+
+
+def phase_serve_mesh(device, smi: str) -> dict[str, int]:
+    """Serving under a mesh (path ``serve_mesh``): (a) on one NCCL rank in
+    this process while two spawned gloo ranks run (b) and (c); the
+    launches of (a)'s mesh run and of every rank's mesh runs."""
+    t_phase = time.perf_counter()
+
+    def one_rank():
+        with one_rank_group(device):
+            return serve_mesh_one_rank(device, smi)
+
+    launches, ranks = serve_mesh_ranks(smi, one_rank)
+    for name, n in ranks.items():
+        launches[name] += n
+    log(f"serve_mesh path launches: {launches}")
+    log(f"serve_mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
     """Kernel, plain-version and library times at the main path's shapes,
     with the bound of each; ``by_path`` holds each path's launches."""
@@ -3877,6 +4181,7 @@ def main() -> int:
     with one_rank_group(device):
         by_path["sharded"] = phase_sharded(device, records, smi)
         by_path["train_mesh"] = phase_train_mesh(device, smi)
+    by_path["serve_mesh"] = phase_serve_mesh(device, smi)
 
     rows = phase_numbers(device, cfg, params, records, tenants, by_path, est_out)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -16,6 +16,11 @@ where tensor dim i is split over that axis, else ``Replicate()``);
 (:mod:`..tree`).  The spec functions read only ``mesh.mesh_dim_names`` and
 ``mesh.shape`` (``mesh.AbstractMesh`` serves); the placements need a real
 ``DeviceMesh`` only to distribute tensors.
+
+:func:`local_block` cuts a rank's block of a tensor from its spec with no
+collective, from a full tensor that every rank holds (drawn from the same
+seed): at qwen2.5-3b, :func:`distribute`'s scatter from rank 0 would push
+about 12 GB of f32 parameters through the group.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from typing import Any
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
 from ..tree import tree_map
-from .mesh import batch_axes
+from .mesh import batch_axes, coordinate
 
 
 def _normalize(entry):
@@ -188,3 +193,42 @@ def distribute(x, sharding: NamedSharding, src_data_rank: int | None = 0):
     locally (no collective)."""
     return distribute_tensor(x, sharding.mesh, sharding.placements,
                              src_data_rank=src_data_rank)
+
+
+def batch_dim(mesh, spec: PartitionSpec):
+    """The tensor dim that ``spec`` splits over the mesh's batch axes (the
+    FSDP dim), or None."""
+    bd = set(batch_axes(mesh))
+    dims = [d for d, entry in enumerate(spec) if set(_mesh_axes(entry)) & bd]
+    return dims[0] if dims else None
+
+
+def local_block(x, sharding: NamedSharding, rank: int):
+    """Rank ``rank``'s block of the full tensor ``x`` under ``sharding``,
+    a contiguous copy (the full tensor can be freed), cut without a
+    collective: along each tensor dim split over mesh axes, the block at
+    the rank's coordinate along those axes (flattened in mesh order, the
+    first major), as DTensor's ``Shard`` lays it out.  A dim the shards do
+    not divide raises ``ValueError``."""
+    mesh, spec = sharding.mesh, sharding.spec
+    where = coordinate(mesh, rank)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    out = x
+    for dim, entry in enumerate(spec):
+        axes = _mesh_axes(entry)
+        if not axes:
+            continue
+        shards, index = 1, 0
+        for axis in axes:
+            shards, index = shards * sizes[axis], index * sizes[axis] + where[axis]
+        if x.shape[dim] % shards:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {shards} "
+                             f"shards ({entry})")
+        block = x.shape[dim] // shards
+        out = out.narrow(dim, index * block, block)
+    return out.clone()
+
+
+def local_blocks(tree, shardings, rank: int):
+    """:func:`local_block` of every leaf of ``tree``."""
+    return tree_map(lambda x, s: local_block(x, s, rank), tree, shardings)

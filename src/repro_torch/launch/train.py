@@ -45,7 +45,10 @@ from . import shardings as SH
 from .data_parallel import DataParallel
 from .mesh import axis_size, batch_axes, data_shards
 
-TENSOR_PARALLEL_ITEM = "ROADMAP.md queue 1 item 1 (tensor parallelism)"
+# Serving runs tensor-parallel (``launch/serve.py``); the train step's
+# backward through ``launch/tensor_parallel.py``'s f/g pairs and the
+# gathers over the batch group alone are the next item.
+TENSOR_PARALLEL_ITEM = "ROADMAP.md queue 1 item 1 (tensor-parallel training)"
 
 
 class TrainState(NamedTuple):

@@ -58,8 +58,11 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int, *, device) ->
     return dense_init(generator, (vocab, d), scale=1.0, device=device)
 
 
-def embed(table, token_ids):
-    return table[token_ids]
+def embed(table, token_ids, tp=None):
+    """Rows of ``table`` for ``token_ids``.  Under tensor parallelism
+    (``tp``, a ``launch.tensor_parallel.TensorParallel``) ``table`` is
+    the rank's block of the vocabulary, looked up vocab-parallel."""
+    return table[token_ids] if tp is None else tp.embed(table, token_ids)
 
 
 def mask_padded_vocab(lg, true_vocab: int):
@@ -108,7 +111,14 @@ def init_mlp(generator: torch.Generator, d: int, ff: int, *, device) -> dict:
     }
 
 
-def mlp(params, x):
+def mlp(params, x, tp=None):
+    """SwiGLU.  Under tensor parallelism (``tp``) the rank holds a block
+    of the ``d_ff`` columns: ``w_gate`` and ``w_up`` column-parallel,
+    ``w_down`` row-parallel, its partial output summed over the model
+    group."""
+    if tp is not None:
+        x = tp.copy(x)
     h = torch.nn.functional.silu(torch.matmul(x, params["w_gate"]))
     h = h * torch.matmul(x, params["w_up"])
-    return torch.matmul(h, params["w_down"])
+    out = torch.matmul(h, params["w_down"])
+    return out if tp is None else tp.reduce(out)

@@ -18,6 +18,14 @@ Public entry points (cfg/dims describe the model):
     prefill(params, cfg, dims, tokens, ...)        -> (logits_last, Cache)
     decode_step(params, cfg, dims, token, cache)   -> (logits, Cache)
 
+Under a mesh, ``prefill``, ``decode_step`` and ``init_cache`` take ``tp``
+(a ``launch.tensor_parallel.TensorParallel``: the rank's block of the
+heads, ``d_ff`` columns, vocabulary, experts and SSM heads) and ``dp`` (a
+``launch.data_parallel.DataParallel`` over the batch axes: the
+FSDP-placed weights gathered one layer at a time, the MoE routing groups
+of the global batch, and with ``seq_sharded`` the rank's block of the
+cache's positions); ``launch/serve.py`` builds both from a mesh.
+
 Rematerialisation (``forward``'s ``remat``) wraps each layer period, the
 JAX package's scan body, in ``torch.utils.checkpoint``: ``"none"`` keeps
 every activation, ``"full"`` recomputes the period in the backward pass,
@@ -181,10 +189,17 @@ def _positions(tokens):
     return torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
 
 
-def _logits(wp, cfg: ArchConfig, x):
+def _logits(wp, cfg: ArchConfig, x, tp=None):
+    """Logits over the (padded) vocabulary; under ``tp`` the rank's block
+    of the vocabulary, its columns all-gathered (before any
+    ``mask_padded_vocab``)."""
+    if tp is not None:
+        x = tp.copy(x)
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, wp["embed"])
-    return torch.einsum("bsd,dv->bsv", x, wp["lm_head"])
+        lg = torch.einsum("bsd,vd->bsv", x, wp["embed"])
+    else:
+        lg = torch.einsum("bsd,dv->bsv", x, wp["lm_head"])
+    return lg if tp is None else tp.gather(lg, -1)
 
 
 def _zero_aux(device):
@@ -228,12 +243,14 @@ def _remat_wrap(fn, remat: str):
 
 def _run_groups(params, cfg, dims, x, positions, *, causal, enc_mem=None, remat="none",
                 ssm_chunk=128, collect_cache=False, attn_chunk=2048,
-                probs_dtype=torch.float32, impl=None, dp=None):
+                probs_dtype=torch.float32, impl=None, dp=None, tp=None):
     """Every layer of every group in order, each layer period under
     ``remat``.  Returns (x, aux, caches|None): the MoE aux losses summed
     over layers (None without experts), caches stacked per group as the
     parameters are.  Under ``dp`` a period gathers its parameters inside
-    its remat region."""
+    its remat region; under ``tp`` each layer runs on the rank's block of
+    the model axis, and its output is held equal across the model group
+    (``tp.check_replicated``)."""
     aux = _zero_aux(x.device) if cfg.num_experts > 0 else None
     caches = [] if collect_cache else None
     for gi, ((pspec, count), gparams) in enumerate(zip(layer_groups(cfg), params["groups"])):
@@ -246,7 +263,9 @@ def _run_groups(params, cfg, dims, x, positions, *, causal, enc_mem=None, remat=
                 x, cache_out, aux = blocks.apply_layer(
                     pslice[i], x, dims, spec, positions=positions, causal=causal,
                     enc_mem=enc_mem, aux=aux, ssm_chunk=ssm_chunk, attn_chunk=attn_chunk,
-                    probs_dtype=probs_dtype, impl=impl, dp=dp)
+                    probs_dtype=probs_dtype, impl=impl, dp=dp, tp=tp)
+                if tp is not None:
+                    tp.check_replicated(x, f"group {_gi} layer {i}")
                 outs.append(cache_out)
             return x, aux, (tuple(outs) if collect_cache else None)
 
@@ -261,7 +280,7 @@ def _run_groups(params, cfg, dims, x, positions, *, causal, enc_mem=None, remat=
     return x, aux, caches
 
 
-def _encode(params, cfg, dims, enc_feats, *, remat="none", impl=None, dp=None):
+def _encode(params, cfg, dims, enc_feats, *, remat="none", impl=None, dp=None, tp=None):
     """Encoder stack over precomputed frontend features (B, S_src, d):
     non-causal self-attention layers, each under ``remat``, then the
     encoder's norm."""
@@ -272,7 +291,9 @@ def _encode(params, cfg, dims, enc_feats, *, remat="none", impl=None, dp=None):
         if dp is not None:
             pslice = dp.gather_layer(pslice, ("encoder", "layers"))
         x, _, _ = blocks.apply_layer(pslice[0], x, dims, ENCODER_SPEC, positions=positions,
-                                     causal=False, impl=impl)
+                                     causal=False, impl=impl, tp=tp)
+        if tp is not None:
+            tp.check_replicated(x, "encoder layer")
         return x
 
     body = _remat_wrap(body, remat)
@@ -349,6 +370,12 @@ def lm_loss(logits, labels, true_vocab: int, *, mask=None):
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
 
+def _split(n: int, parts: int, what: str) -> int:
+    if n % parts:
+        raise ValueError(f"{what} {n} does not split over {parts} shards")
+    return n // parts
+
+
 class Cache(NamedTuple):
     """Decode state.  groups: per layer group, the stacked per-layer caches."""
     groups: tuple
@@ -356,20 +383,34 @@ class Cache(NamedTuple):
 
 
 def init_cache(cfg: ArchConfig, dims: Dims, batch: int, max_len: int, src_len: int = 0, *,
-               dtype=torch.bfloat16, device=None) -> Cache:
+               dtype=torch.bfloat16, device=None, tp=None, dp=None) -> Cache:
     """Zero decode state: K/V of ``max_len`` positions, mamba states, and
-    for an encoder-decoder with ``src_len`` > 0 the memory K/V."""
+    for an encoder-decoder with ``src_len`` > 0 the memory K/V.
+
+    Under a mesh, the rank's block of ``launch.shardings.cache_pspecs``'s
+    layout of that state (``batch``, ``max_len`` and ``src_len`` are the
+    whole cache's): KV / tp and SSM heads / tp under ``tp``; under ``dp``,
+    batch / shards rows, or with ``seq_sharded`` every row and max_len /
+    shards positions (src_len / shards memory rows), the rank's contiguous
+    block.  A size the shards do not divide raises ``ValueError``."""
     device = platform.resolve(device)
+    if dp is not None and dp.seq_sharded:
+        max_len = _split(max_len, dp.world, "max_len")
+        src_len = _split(src_len, dp.world, "src_len")
+    elif dp is not None:
+        batch = _split(batch, dp.world, "batch")
+    tp_size = 1 if tp is None else tp.size
     groups = tuple(
         tuple(blocks.init_layer_cache(dims, spec, batch, max_len, src_len, stack=(count,),
-                                      dtype=dtype, device=device) for spec in pspec)
+                                      dtype=dtype, device=device, tp_size=tp_size)
+              for spec in pspec)
         for pspec, count in layer_groups(cfg))
     return Cache(groups=groups, lens=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
 def prefill(params, cfg: ArchConfig, dims: Dims, tokens, *, enc_feats=None,
             compute_dtype=torch.bfloat16, ssm_chunk: int = 128, attn_chunk: int = 2048,
-            impl: str | None = None):
+            impl: str | None = None, tp=None, dp=None):
     """Process a full prompt; returns (last-token logits (B, 1, vocab)
     float32, Cache).
 
@@ -380,43 +421,60 @@ def prefill(params, cfg: ArchConfig, dims: Dims, tokens, *, enc_feats=None,
     device); ``ssm_chunk`` is the chunk of the mamba layers' scan.  The
     returned attention caches have length S; ``launch.serve`` re-bases
     them into a max_len cache.
+
+    Under a mesh (``tp``, ``dp``; ``launch.serve.make_prefill`` builds
+    them) ``params`` are the rank's blocks and ``tokens`` its rows (every
+    row with ``dp.seq_sharded``); the logits cover the whole vocabulary,
+    the caches the rank's heads and rows.
     """
     wp = _cast(params, compute_dtype)
+    if dp is not None:
+        wp = dp.gather_top(wp)
     device = wp["embed"].device
     tokens = torch.as_tensor(tokens, device=device)
-    x = embed(wp["embed"], tokens)
+    x = embed(wp["embed"], tokens, tp)
     enc_mem = None
     if cfg.is_encdec:
         if enc_feats is None:
             raise ValueError(f"{cfg.name} is an encoder-decoder: prefill needs enc_feats")
         enc_mem = _encode(wp, cfg, dims,
                           torch.as_tensor(enc_feats, device=device).to(compute_dtype),
-                          impl=impl)
+                          impl=impl, dp=dp, tp=tp)
     x, _, caches = _run_groups(wp, cfg, dims, x, _positions(tokens), causal=True,
                                enc_mem=enc_mem, ssm_chunk=ssm_chunk, collect_cache=True,
-                               attn_chunk=attn_chunk, impl=impl)
+                               attn_chunk=attn_chunk, impl=impl, dp=dp, tp=tp)
     x = rmsnorm(wp["final_norm"], x[:, -1:], cfg.rms_eps)
     b, s = tokens.shape
     cache = Cache(groups=tuple(caches),
                   lens=torch.full((b,), s, dtype=torch.int32, device=tokens.device))
-    return _logits(wp, cfg, x).to(torch.float32), cache
+    return _logits(wp, cfg, x, tp).to(torch.float32), cache
 
 
 def decode_step(params, cfg: ArchConfig, dims: Dims, token, cache: Cache, *,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, tp=None, dp=None):
     """One token for every sequence.  token (B, 1) -> (logits (B, 1, vocab)
     float32, Cache).  The cache's K/V and mamba states are updated in
     place; the returned Cache holds the same tensors and ``lens + 1``.
     Decode attention is plain PyTorch (no kernel op), so there is no
-    ``impl``."""
+    ``impl``.  Under a mesh (``tp``, ``dp``) as :func:`prefill`: the
+    rank's blocks, rows and cache block (:func:`init_cache`), each
+    layer's weights gathered over the batch axes as it runs."""
     wp = _cast(params, compute_dtype)
+    if dp is not None:
+        wp = dp.gather_top(wp)
     token = torch.as_tensor(token, device=wp["embed"].device)
-    x = embed(wp["embed"], token)
-    for (pspec, count), gparams, gcache in zip(layer_groups(cfg), wp["groups"], cache.groups):
+    x = embed(wp["embed"], token, tp)
+    for gi, ((pspec, count), gparams, gcache) in enumerate(zip(layer_groups(cfg), wp["groups"],
+                                                               cache.groups)):
         for layer in range(count):
             pslice, cslice = _layer(gparams, layer), _layer(gcache, layer)
+            if dp is not None:
+                pslice = dp.gather_layer(pslice, ("groups", gi))
             for i, spec in enumerate(pspec):
-                x, _ = blocks.decode_layer(pslice[i], x, dims, spec, cslice[i], cache.lens)
+                x, _ = blocks.decode_layer(pslice[i], x, dims, spec, cslice[i], cache.lens,
+                                           tp=tp, dp=dp)
+                if tp is not None:
+                    tp.check_replicated(x, f"decode group {gi} layer {i}")
     x = rmsnorm(wp["final_norm"], x, cfg.rms_eps)
-    return (_logits(wp, cfg, x).to(torch.float32),
+    return (_logits(wp, cfg, x, tp).to(torch.float32),
             Cache(groups=cache.groups, lens=cache.lens + 1))

@@ -10,6 +10,14 @@ computes these einsums outside any Pallas kernel, and so does the port
 Supports shared experts (DeepSeek-MoE: always-on experts added to the
 routed output) and returns the load-balancing and router-z auxiliary
 losses.
+
+Under tensor parallelism (``tp=``) the experts split over the model axis:
+the rank keeps E / tp of them and the matching block of the router's
+columns.  The router logits are all-gathered before the softmax and
+``ranked_top_k``, so every rank routes on all E experts with the same
+ties; dispatch and combine then take the rank's experts' slice, and the
+routed output is a partial sum over the group.  ``moe_capacity`` stays a
+function of the global E.
 """
 from __future__ import annotations
 
@@ -82,25 +90,35 @@ def moe_capacity(group: int, top_k: int, capacity_factor: float, num_experts: in
 
 
 def moe_ffn(params, x, *, num_experts: int, top_k: int, capacity_factor: float,
-            group: int | None = None, mean=None):
+            group: int | None = None, mean=None, tp=None):
     """x (B, S, d) -> (out (B, S, d), {"moe_lb_loss", "moe_z_loss"} f32
     scalars).  The B * S tokens form groups of ``min(group, B * S)``
     (``group`` None: :data:`GROUP`).
     ``mean`` maps the aux losses' means over these tokens to means over a
     larger batch (a data-parallel step's ranks; None: these tokens are
-    the batch)."""
+    the batch).  ``tp``: the rank's experts (module docstring)."""
     b, s, d = x.shape
     t = b * s
     group = min(GROUP if group is None else group, t)
     if t % group:
         raise ValueError(f"{t} tokens do not split into groups of {group}")
     g = t // group
-    xt = x.reshape(g, group, d)
+    xin = x if tp is None else tp.copy(x)
+    xt = xin.reshape(g, group, d)
 
     router_logits = torch.einsum("gsd,de->gse", xt, params["router"]).to(torch.float32)
+    if tp is not None:
+        router_logits = tp.gather(router_logits, -1)
     probs = torch.softmax(router_logits, dim=-1)
     capacity = moe_capacity(group, top_k, capacity_factor, num_experts)
     dispatch, combine, gates, idx = _dispatch_tensors(probs, top_k, capacity)
+    if tp is not None:
+        first, count = tp.block(num_experts)
+        if params["w_gate"].shape[0] != count:
+            raise ValueError(f"{params['w_gate'].shape[0]} experts on a rank of a model axis "
+                             f"of {tp.size} over {num_experts}")
+        dispatch = dispatch[:, :, first:first + count]
+        combine = combine[:, :, first:first + count]
 
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xt)
     h = F.silu(torch.einsum("egcd,edf->egcf", expert_in, params["w_gate"]))
@@ -108,9 +126,11 @@ def moe_ffn(params, x, *, num_experts: int, top_k: int, capacity_factor: float,
     expert_out = torch.einsum("egcf,efd->egcd", h, params["w_down"])
     out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), expert_out)
     out = out.reshape(b, s, d)
+    if tp is not None:
+        out = tp.reduce(out)
 
     if "shared" in params:
-        out = out + mlp(params["shared"], x)
+        out = out + mlp(params["shared"], x, tp)
 
     # aux: load-balance (Switch eq. 4-6) + router z-loss
     me = probs.mean(dim=(0, 1))                                       # (E,)

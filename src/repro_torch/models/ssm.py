@@ -13,6 +13,14 @@ contributions with the decay mask exp(cum[i] - cum[j]).  Decode is the
 O(1) recurrent step, with a (K-1)-deep causal-conv state.  The JAX package
 runs this mixer outside any Pallas kernel, and so does the port (plain
 PyTorch, in float32 where the JAX package computes in float32).
+
+Under tensor parallelism (``tp=``) the SSM heads split over the model
+axis: ``wz``, ``wx``, ``wdt``, ``conv_x``, ``A_log``, ``dt_bias``, ``D``
+and ``norm`` hold the rank's contiguous block of heads (the gated norm is
+per head, so it stays local), ``wo`` is row-parallel, and ``wB``, ``wC``
+and ``conv_bc`` stay replicated (the "ssm_group" axis maps to no mesh
+axis).  The rank's heads keep their *global* groups: with 8 groups over
+2 ranks, rank 1's heads read groups 4..7, not 0..3 (:func:`_rank_groups`).
 """
 from __future__ import annotations
 
@@ -158,19 +166,40 @@ def _group_to_heads(t, h):
     return t[:, :, :, None, :].expand(b, l, g, h // g, n).reshape(b, l, h, n)
 
 
+def _rank_groups(bm, cm, dims: Dims, tp):
+    """B and C of the groups of this rank's heads.  Head j of the model
+    reads group j // (H / G) (``ssd_chunked``'s ``hg = h // g`` and
+    :func:`_group_to_heads` over all H heads), so the rank's block of
+    heads from ``tp.rank * H_rank`` reads a contiguous run of groups that
+    starts at that head's group, not at group 0."""
+    if tp is None or tp.size == 1:
+        return bm, cm
+    heads, groups = dims.ssm_heads, dims.cfg.ssm_groups
+    first, count = tp.block(heads)
+    per_group = heads // groups
+    if count % per_group and per_group % count:
+        raise ValueError(f"{count} SSM heads a rank split groups of {per_group} heads")
+    g0, g1 = first // per_group, (first + count - 1) // per_group + 1
+    return bm[:, :, g0:g1], cm[:, :, g0:g1]
+
+
 def mamba_block(params, u, dims: Dims, *, chunk: int = DEFAULT_CHUNK, conv_state=None,
-                ssm_state=None):
-    """Full-sequence mixer.  u (B, S, d) -> (out (B,S,d), new states)."""
+                ssm_state=None, tp=None):
+    """Full-sequence mixer.  u (B, S, d) -> (out (B,S,d), new states).
+    ``tp``: the rank's heads (module docstring)."""
     cfg = dims.cfg
+    if tp is not None:
+        u = tp.copy(u)
     z, x, bm, cm, dt = _project(params, u, dims)
     x, bm, cm, new_conv = _conv_split(params, x, bm, cm, conv_state)
+    bm, cm = _rank_groups(bm, cm, dims, tp)
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])           # (B,S,H)
     a = -torch.exp(params["A_log"]) * dt                                 # (B,S,H)
     y, h_final = ssd_chunked(x, a, dt, bm, cm, chunk=chunk, h0=ssm_state)
     y = y + params["D"][:, None] * x.to(torch.float32)
     y = _gated_norm(params["norm"], y, z, cfg.rms_eps)
     out = torch.einsum("bshp,hpd->bsd", y.to(u.dtype), params["wo"])
-    return out, {"conv": new_conv, "ssm": h_final}
+    return (out if tp is None else tp.reduce(out)), {"conv": new_conv, "ssm": h_final}
 
 
 def _gated_norm(scale, y, z, eps):
@@ -180,18 +209,22 @@ def _gated_norm(scale, y, z, eps):
     return y * torch.rsqrt(var + eps) * scale
 
 
-def mamba_decode_step(params, u, dims: Dims, conv_state, ssm_state):
+def mamba_decode_step(params, u, dims: Dims, conv_state, ssm_state, *, tp=None):
     """One-token recurrent step.  u (B, 1, d).
 
     conv_state: {"x": (B,K-1,H*P), "bc": (B,K-1,2GN)}; ssm_state (B,H,N,P).
     Returns (out (B,1,d), new states); the inputs are not written.
+    ``tp``: the rank's heads (H counts them).
     """
     cfg = dims.cfg
+    if tp is not None:
+        u = tp.copy(u)
     z, x, bm, cm, dt = _project(params, u, dims)
     x, bm, cm, new_conv = _conv_split(params, x, bm, cm, conv_state)
+    bm, cm = _rank_groups(bm, cm, dims, tp)
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])           # (B,1,H)
     a = -torch.exp(params["A_log"]) * dt
-    h = dims.ssm_heads
+    h = params["A_log"].shape[0]
     bkh = _group_to_heads(bm.to(torch.float32), h)[:, 0]                 # (B,H,N)
     ckh = _group_to_heads(cm.to(torch.float32), h)[:, 0]
     xdt = x.to(torch.float32)[:, 0] * dt[:, 0][..., None]                # (B,H,P)
@@ -201,15 +234,17 @@ def mamba_decode_step(params, u, dims: Dims, conv_state, ssm_state):
     y = y + params["D"][:, None] * x.to(torch.float32)
     y = _gated_norm(params["norm"], y, z, cfg.rms_eps)
     out = torch.einsum("bshp,hpd->bsd", y.to(u.dtype), params["wo"])
-    return out, {"conv": new_conv, "ssm": ssm_state}
+    return (out if tp is None else tp.reduce(out)), {"conv": new_conv, "ssm": ssm_state}
 
 
 def init_mamba_state(dims: Dims, batch: int, dtype=torch.bfloat16, *, stack: tuple = (),
-                     device) -> dict:
+                     device, tp_size: int = 1) -> dict:
     """Zero decode state for one mamba layer, or for ``stack`` layers of it:
-    conv states in ``dtype``, the SSM state in float32."""
+    conv states in ``dtype``, the SSM state in float32; a rank of a model
+    axis of ``tp_size`` holds H / tp_size heads (the "bc" conv state, over
+    the replicated groups, stays whole)."""
     cfg = dims.cfg
-    h, p = dims.ssm_heads, cfg.ssm_head_dim
+    h, p = dims.ssm_heads // tp_size, cfg.ssm_head_dim
     g, n, k = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv
     lead = tuple(stack) + (batch,)
     return {

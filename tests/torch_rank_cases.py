@@ -2,8 +2,8 @@
 ``tests/test_torch_mesh.py``: functions that each rank of a gloo process
 group runs on the CPU, and the inputs they share with the parent test.
 
-``start`` launches ``WORLD`` ranks on one ``FileStore`` and ``join`` waits
-for them (a test file starts them first, so that they run beside its
+``start`` launches ``WORLD`` ranks (or ``world=``) on one ``FileStore``
+and ``join`` waits for them (a test file starts them first, so that they run beside its
 one-process tests); each rank writes what it computed to
 ``<out>/rank<r>.pt`` for the parent to hold against the JAX package and
 the port's one-process paths.  This module imports no
@@ -83,24 +83,24 @@ def restore_tree() -> dict:
 
 # -- process plumbing -------------------------------------------------------
 
-def _init(rank: int, store: str) -> None:
+def _init(rank: int, store: str, world: int) -> None:
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store, WORLD), rank=rank,
-                            world_size=WORLD, timeout=datetime.timedelta(seconds=120))
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
 
 
-def _entry(rank: int, fn, store: str, out: str, *args) -> None:
-    _init(rank, store)
+def _entry(rank: int, fn, store: str, out: str, world: int, *args) -> None:
+    _init(rank, store, world)
     try:
         torch.save(fn(rank, *args), os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
-def start(fn, out: Path, *args):
-    """Start ``fn(rank, *args)`` on ``WORLD`` gloo ranks; ``join`` waits."""
-    ctx = mp.start_processes(_entry, args=(fn, str(out / "store"), str(out)) + args,
-                             nprocs=WORLD, join=False, start_method="spawn")
+def start(fn, out: Path, *args, world: int = WORLD):
+    """Start ``fn(rank, *args)`` on ``world`` gloo ranks; ``join`` waits."""
+    ctx = mp.start_processes(_entry, args=(fn, str(out / "store"), str(out), world) + args,
+                             nprocs=world, join=False, start_method="spawn")
     return ctx, out, time.monotonic() + SPAWN_TIMEOUT_S
 
 
@@ -121,7 +121,8 @@ def join(started) -> list[dict]:
                 p.kill()
             raise TimeoutError(f"ranks still running after {SPAWN_TIMEOUT_S} s")
     # the ranks' own files, pickled trees of tensors
-    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(len(ctx.processes))]
 
 
 # -- the sharded file's ranks -----------------------------------------------
