@@ -130,6 +130,21 @@ w=1024, t=3):
   every prefill attention on the f32 flash kernel; their collectives
   cross host memory, so their times are not a speed of tensor
   parallelism;
+* tensor-parallel training (``train_tp`` phase, path ``train_tp``):
+  ``make_train_step(mesh=)`` on two spawned gloo ranks on the card,
+  (data=1, model=2).  (a) qwen2.5-3b cut to 4 layers, f32, AdamW, one 1 x
+  10,240 batch, 2 steps (every rank's 8 heads through the f32 flash
+  forward and backward kernels), then again with ``seq_parallel``, and
+  deepseek-moe-16b cut to 2 layers on 4,096 tokens, routing pinned, held
+  against the one-process step of the same Dims: losses within 1e-5,
+  every gradient leaf within 1e-4 of its max |g|, the parameters within
+  1e-4 of the largest |p| where the gradient sets AdamW's direction (at
+  least half of each rank's elements) and within 2 lr a step elsewhere,
+  the metrics the same bits on both ranks, the flash launches as
+  predicted; (b) qwen2.5-3b at full width, cut to 12 of 36 layers, bf16,
+  the sharded Q8Adam and the merged monitor, 4 steps: launches as
+  predicted, the loss falling, the monitor against its ``torch_ref`` twin (a correctness run: gloo
+  carries its collectives through host memory);
 * the plugin kinds (``plugins`` phase): ``examples/plugins_torch`` loaded
   through ``load_plugins``, a service of 16 ipf, 16 theta_kmv and 16 SJPC
   tenants of the paper's group (4,096 records each per epoch, 6 epochs,
@@ -469,6 +484,35 @@ SERVE_MESH_TIMEOUT_S = 600
 # layers 4.8-8.9 s (PERF.md).  (a) runs in the parent while the ranks run
 # (b) and (c).
 SERVE_SEQ_LAYERS = 4
+# The train_tp phase: make_train_step(mesh=) on two gloo ranks on the one
+# card, (data=1, model=2), the kernels loaded from phase_build's build.
+# (a) the gate: qwen2.5-3b cut to TRAIN_CHECK_LAYERS, f32, remat full,
+# AdamW, one 1 x TRAIN_LONG_TOKENS batch (every rank's 8 heads and 1 KV head
+# through the f32 flash forward and backward kernels), TP_CHECK_STEPS
+# steps, then again with seq_parallel; deepseek-moe-16b cut to TP_MOE_LAYERS
+# (the dense first layer and one MoE layer, 32 experts a rank), f32, 1 x
+# TP_MOE_TOKENS, one step, routing pinned.  Each is held against the
+# one-process step of the same Dims (compute_dims(cfg, tp=2)), which each
+# rank runs in turn on the redrawn whole parameters, holding its own
+# blocks against it: no gradient or parameter crosses between processes.
+# (b) the run: qwen2.5-3b at full width, cut to TP_RUN_LAYERS layers,
+# bf16, remat full, the sharded Q8Adam and the merged monitor, TP_STEPS
+# steps of that batch.  At all 36 layers each rank peaked at 37.05 GB (a
+# probe with nothing else on the card); after the earlier phases the
+# whole script's two ranks ran out of memory in the sharded Q8Adam's
+# update, so (b) is cut.  At 24 layers a step took 13.6 s, its collectives
+# crossing host memory through gloo; 12 layers keep the script's whole run
+# within its 1,200 s on a slow host, train_mesh running all 36.
+TP_WORLD = SERVE_MESH_WORLD
+TP_TIMEOUT_S = 600
+TP_CHECK_STEPS = 2
+TP_MOE_LAYERS = 2
+TP_MOE_TOKENS = 4096
+TP_STEPS = 4
+TP_RUN_LAYERS = 12
+TP_LOSS_RTOL = 1e-5             # each step's loss, relative
+TP_GRAD_RTOL = 1e-4             # every gradient leaf, of its max |g|
+TP_PARAM_RTOL = 1e-4            # the parameters after the steps, of the tree's max |p|
 
 KERNELS = {"fused_ingest": kfi, "sample_weights": ksw, "fingerprint": kfp,
            "fused_query": kfq, "fused_pairs": kpairs, "sketch_update": ksu,
@@ -3786,10 +3830,12 @@ def mesh_case(rank: int, cfg, mesh_shape, prompt, moe: bool, device) -> dict:
             "flips": None if routing is None else (routing.flips, routing.tokens)}
 
 
-def serve_mesh_rank(rank: int, store: str, out: str) -> None:
-    """A rank of the serve_mesh phase's (b) and (c) (a spawned process):
-    gloo over CUDA tensors, the kernels loaded from ``phase_build``'s
-    libraries; its results, or its error, to ``<out>/rank<r>.pt``."""
+def rank_entry(rank: int, store: str, out: str, body) -> None:
+    """A spawned rank of a two-rank phase: gloo over CUDA tensors (NCCL
+    refuses two ranks on one device), the kernels loaded from
+    ``phase_build``'s libraries; ``body`` is this module's function
+    ``(rank, device) -> dict`` it runs; its results, or its error, go to
+    ``<out>/rank<r>.pt``."""
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     dist.init_process_group("gloo", store=dist.FileStore(store, SERVE_MESH_WORLD), rank=rank,
@@ -3806,16 +3852,7 @@ def serve_mesh_rank(rank: int, store: str, out: str) -> None:
         dist.all_gather(parts, probe * (rank + 1))
         result["gloo_cuda"] = (probe.device == device and float(probe[0]) == 3.0
                                and [float(p[0]) for p in parts] == [3.0, 6.0])
-        qwen = configs.get(SERVE_ARCH)
-        moe = dataclasses.replace(configs.get(MOE_ARCH), num_layers=MOE_LAYERS)
-        for key, cfg, shape, routed in (
-                ("tp_qwen", qwen, (1, SERVE_MESH_WORLD), False),
-                ("tp_moe", moe, (1, SERVE_MESH_WORLD), True),
-                ("seq_qwen", dataclasses.replace(qwen, num_layers=SERVE_SEQ_LAYERS),
-                 (SERVE_MESH_WORLD, 1), False)):
-            prompt = torch.from_numpy(serve_prompts(cfg.vocab_size)[:1]).to(device)
-            result[key] = mesh_case(rank, cfg, shape, prompt, routed, device)
-            torch.cuda.empty_cache()
+        result.update(body(rank, device))
         result["seconds"] = time.perf_counter() - t0
     except Exception as err:  # noqa: BLE001 -- handed to the parent, which fails with it
         import traceback
@@ -3825,26 +3862,26 @@ def serve_mesh_rank(rank: int, store: str, out: str) -> None:
         dist.destroy_process_group()
 
 
-def serve_mesh_ranks(smi: str, during):
-    """(b) and (c) on two spawned ranks, ``during()`` in this process
-    meanwhile: (its result, the ranks' launch counts summed)."""
+def spawn_ranks(body, phase: str, timeout_s: float, during=lambda: None):
+    """``body`` on SERVE_MESH_WORLD spawned ranks (:func:`rank_entry`),
+    ``during()`` in this process meanwhile: (its result, the ranks'
+    results).  A rank's error ends the wait at once: the other rank may be
+    waiting for it in a collective."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.start_processes(serve_mesh_rank, args=(os.path.join(tmp, "store"), tmp),
+        ctx = mp.start_processes(rank_entry, args=(os.path.join(tmp, "store"), tmp, body),
                                  nprocs=SERVE_MESH_WORLD, join=False, start_method="spawn")
-        deadline = time.monotonic() + SERVE_MESH_TIMEOUT_S
+        deadline = time.monotonic() + timeout_s
         try:
             beside = during()
             while not ctx.join(timeout=5):
                 require(time.monotonic() < deadline,
-                        f"serve_mesh: ranks still running after {SERVE_MESH_TIMEOUT_S} s")
-                # a rank that failed has written its error; the other may be
-                # waiting for it in a collective
+                        f"{phase}: ranks still running after {timeout_s} s")
                 for r in range(SERVE_MESH_WORLD):
                     path = os.path.join(tmp, f"rank{r}.pt")
                     if os.path.exists(path) and not ctx.processes[r].is_alive():
                         res = torch.load(path, weights_only=False)
-                        require("error" not in res, f"serve_mesh rank {r}: {res.get('error')}")
+                        require("error" not in res, f"{phase} rank {r}: {res.get('error')}")
         finally:
             for proc in ctx.processes:
                 if proc.is_alive():
@@ -3853,10 +3890,33 @@ def serve_mesh_ranks(smi: str, during):
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                  for r in range(SERVE_MESH_WORLD)]
     for r, res in enumerate(ranks):
-        require("error" not in res, f"serve_mesh rank {r}: {res.get('error')}")
-        require(res["libraries_built"], f"serve_mesh rank {r}: a kernel library was missing")
-        require(res["gloo_cuda"], f"serve_mesh rank {r}: gloo's all-reduce or all-gather of "
+        require("error" not in res, f"{phase} rank {r}: {res.get('error')}")
+        require(res["libraries_built"], f"{phase} rank {r}: a kernel library was missing")
+        require(res["gloo_cuda"], f"{phase} rank {r}: gloo's all-reduce or all-gather of "
                                   f"CUDA tensors gave another sum")
+    return beside, ranks
+
+
+def serve_mesh_rank(rank: int, device) -> dict:
+    """A rank of the serve_mesh phase's (b) and (c)."""
+    result = {}
+    qwen = configs.get(SERVE_ARCH)
+    moe = dataclasses.replace(configs.get(MOE_ARCH), num_layers=MOE_LAYERS)
+    for key, cfg, shape, routed in (
+            ("tp_qwen", qwen, (1, SERVE_MESH_WORLD), False),
+            ("tp_moe", moe, (1, SERVE_MESH_WORLD), True),
+            ("seq_qwen", dataclasses.replace(qwen, num_layers=SERVE_SEQ_LAYERS),
+             (SERVE_MESH_WORLD, 1), False)):
+        prompt = torch.from_numpy(serve_prompts(cfg.vocab_size)[:1]).to(device)
+        result[key] = mesh_case(rank, cfg, shape, prompt, routed, device)
+        torch.cuda.empty_cache()
+    return result
+
+
+def serve_mesh_ranks(smi: str, during):
+    """(b) and (c) on two spawned ranks, ``during()`` in this process
+    meanwhile: (its result, the ranks' launch counts summed)."""
+    beside, ranks = spawn_ranks(serve_mesh_rank, "serve_mesh", SERVE_MESH_TIMEOUT_S, during)
     total = dict.fromkeys(COUNTS, 0)
     parts = (("tp_qwen", "(b) (data=1, model=2)", SERVE_ARCH, configs.get(SERVE_ARCH).num_layers),
              ("tp_moe", "(b) (data=1, model=2)", MOE_ARCH, MOE_LAYERS),
@@ -3919,6 +3979,284 @@ def phase_serve_mesh(device, smi: str) -> dict[str, int]:
     log(f"serve_mesh path launches: {launches}")
     log(f"serve_mesh phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def capture_grads(opt, record: list):
+    """``opt`` with each update's gradient blocks copied into ``record``
+    first (the update clips them in place)."""
+    def update(grads, state, params):
+        record.append([local(g).clone() for g in ptree.tree_leaves(grads)])
+        return opt.update(grads, state, params)
+    return type(opt)(opt.init, update)
+
+
+def tp_gate_run(rank: int, cfg, batch, steps: int, device, *, mesh=None, seq_parallel=False,
+                routing=None) -> dict:
+    """``steps`` f32 AdamW steps of ``cfg`` at compute_dims(cfg, tp=2), remat
+    full, no monitor: on ``mesh`` this rank's part (its blocks drawn whole
+    and cut by ``make_train_state(mesh=)``, one rank at a time), else the
+    one-process step.  Returns each step's loss and metrics, the gradients
+    the optimizer got, and the parameters after the steps."""
+    dims = compute_dims(cfg, tp=TP_WORLD)
+    record: list = []
+    opt = make_adamw(constant(TRAIN_LR))
+    gen = torch.Generator(device).manual_seed(TRAIN_SEED)
+    if mesh is None:
+        state, _ = train.make_train_state(gen, cfg, dims, opt, device=device)
+    else:
+        for turn in range(TP_WORLD):
+            if turn == rank:
+                state, _ = train.make_train_state(gen, cfg, dims, opt, device=device, mesh=mesh)
+                torch.cuda.empty_cache()
+            dist.barrier()
+    step = train.make_train_step(cfg, dims, capture_grads(opt, record), mesh, remat="full",
+                                 compute_dtype=torch.float32, seq_parallel=seq_parallel)
+    metrics, seconds = [], []
+    with routing() if routing is not None else contextlib.nullcontext():
+        for _ in range(steps):
+            dt, (state, out) = synced_s(lambda: step(state, batch))
+            metrics.append({k: float(v) for k, v in out.items()})
+            seconds.append(dt)
+    params = [local(p) for p in ptree.tree_leaves(state.params)]
+    del state, step, opt
+    return {"metrics": metrics, "grads": record, "params": params, "seconds": seconds}
+
+
+def tp_gaps(rank: int, mesh, cfg, got: dict, want: dict) -> dict:
+    """The mesh run ``got`` (this rank's blocks) against the one-process run
+    ``want`` (whole leaves): each step's loss, the largest gap of a
+    gradient leaf to its block of the reference over the leaf's max |g|,
+    and the largest gap of the parameters after the steps over the largest
+    |p| of the tree where every step's gradient sets AdamW's direction:
+    the two runs' gradients of the element equal (most of them zero: the
+    embedding rows of tokens the batch lacks), or its |g| above their
+    gap, so that they have one sign (``held``; the gate wants at least
+    half the elements).  Elsewhere rounding may
+    choose an update's sign: AdamW moves an element by at most about lr a
+    step, so there the largest gap (``free``, absolute) stays within 2 lr
+    a step.  (K's bias has a gradient that is zero but for rounding; AdamW
+    turns its sign into a step of lr, and the leaf, zero at the start,
+    holds a few steps of lr: its own max |p| is no scale for it.)"""
+    shard = ptree.tree_leaves(SH.param_shardings(mesh, M.param_axes(M.init_params(
+        torch.Generator(), cfg, compute_dims(cfg, tp=TP_WORLD), device="meta"))),
+        is_leaf=lambda x: isinstance(x, SH.NamedSharding))
+    loss = max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+               for g, w in zip(got["metrics"], want["metrics"]))
+    grad, sure = 0.0, [True] * len(shard)
+    for gs, ws in zip(got["grads"], want["grads"]):
+        for i, (g, w, sh) in enumerate(zip(gs, ws, shard)):
+            block = SH.local_block(w, sh, rank)
+            gap = (g - block).abs()
+            grad = max(grad, float(gap.max() / w.abs().max().clamp_min(1e-30)))
+            sure[i] = ((block.abs() > gap) | (gap == 0)) & sure[i]
+    param, free, held = 0.0, 0.0, 0
+    for g, w, mask, sh in zip(got["params"], want["params"], sure, shard):
+        gap = (g - SH.local_block(w, sh, rank)).abs()
+        held += int(mask.sum())
+        if bool(mask.any()):
+            param = max(param, float(gap[mask].max()))
+        if not bool(mask.all()):
+            free = max(free, float(gap[~mask].max()))
+    param /= max(float(w.abs().max()) for w in want["params"])
+    return {"loss": loss, "grad": grad, "param": param, "free": free, "held": held,
+            "elements": sum(p.numel() for p in got["params"]),
+            "steps": len(got["grads"]), "leaves": len(got["params"])}
+
+
+def train_tp_rank(rank: int, device) -> dict:
+    """A rank of the train_tp phase: (a)'s gate, then (b)'s run."""
+    result: dict = {}
+    t0 = time.perf_counter()
+    mesh = make_debug_mesh(1, TP_WORLD, device_type="cuda")
+    qwen = dataclasses.replace(configs.get(TRAIN_ARCH), num_layers=TRAIN_CHECK_LAYERS)
+    moe = dataclasses.replace(configs.get(MOE_ARCH), num_layers=TP_MOE_LAYERS)
+    batches = {cfg.name: to_device(next(token_batches(1, tokens, cfg.vocab_size,
+                                                      seed=TRAIN_SEED)), device)
+               for cfg, tokens in ((qwen, TRAIN_LONG_TOKENS), (moe, TP_MOE_TOKENS))}
+    # (a) the mesh runs, counted, then each rank's one-process references in turn
+    routing = PinnedRouting()
+    reset_counts()
+    runs = {"qwen": tp_gate_run(rank, qwen, batches[qwen.name], TP_CHECK_STEPS, device,
+                                mesh=mesh),
+            "qwen_sp": tp_gate_run(rank, qwen, batches[qwen.name], TP_CHECK_STEPS, device,
+                                   mesh=mesh, seq_parallel=True),
+            "moe": tp_gate_run(rank, moe, batches[moe.name], 1, device, mesh=mesh,
+                               routing=routing.record)}
+    torch.cuda.synchronize()
+    result["gate_launches"], result["gate_dispatch"] = current_counts()
+    log(f"train_tp rank {rank}: (a)'s mesh runs done at {time.perf_counter() - t0:.1f} s")
+    for turn in range(TP_WORLD):
+        if turn == rank:
+            with oracle_calls():
+                want = tp_gate_run(rank, qwen, batches[qwen.name], TP_CHECK_STEPS, device)
+                for key in ("qwen", "qwen_sp"):
+                    result[key] = tp_gaps(rank, mesh, qwen, runs[key], want)
+                del want
+                torch.cuda.empty_cache()
+                want = tp_gate_run(rank, moe, batches[moe.name], 1, device,
+                                   routing=routing.replay)
+                result["moe"] = tp_gaps(rank, mesh, moe, runs["moe"], want)
+                del want
+            result["flips"] = (routing.flips, routing.tokens)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    for key, run in runs.items():
+        result[key]["metrics"] = run["metrics"]
+        result[key]["step_s"] = run["seconds"]
+    del runs
+    torch.cuda.empty_cache()
+    log(f"train_tp rank {rank}: (a)'s references done at {time.perf_counter() - t0:.1f} s")
+
+    # (b) full width and depth, bf16, the sharded Q8Adam and the merged monitor.
+    # Two ranks' caching allocators share the card: segments that grow in
+    # place keep the reserved but unallocated memory of one from starving
+    # the other (two ranks of 29 GB allocated and 9 GB cached each ran it
+    # out of memory in the sharded Q8Adam's update).
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), num_layers=TP_RUN_LAYERS)
+    dims = compute_dims(cfg, tp=TP_WORLD)
+    batch = batches[qwen.name]
+    opt = make_q8adam_sharded(mesh, constant(TRAIN_LR), mesh_specs(mesh, cfg, dims))
+    torch.cuda.reset_peak_memory_stats(device)
+    for turn in range(TP_WORLD):
+        if turn == rank:
+            state, mparams = train.make_train_state(
+                torch.Generator(device).manual_seed(TRAIN_SEED), cfg, dims, opt,
+                monitor_cfg=TRAIN_MONITOR, device=device, mesh=mesh)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    step = train.make_train_step(cfg, dims, opt, mesh, monitor_cfg=TRAIN_MONITOR,
+                                 monitor_params=mparams, remat="full",
+                                 compute_dtype=torch.bfloat16)
+    losses, seconds = [], []
+    reset_counts()
+    for _ in range(TP_STEPS):
+        dt, (state, out) = synced_s(lambda: step(state, batch))
+        losses.append(float(out["loss"]))
+        seconds.append(dt)
+    torch.cuda.synchronize()
+    result["run_launches"], result["run_dispatch"] = current_counts()
+    result["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    result["peak_reserved_gb"] = torch.cuda.max_memory_reserved(device) / 1e9
+    with oracle_calls():
+        counters = torch.zeros_like(local(state.monitor.counters)[0])
+        n = torch.zeros_like(local(state.monitor.n)[0])
+        plain = ops.make_sjpc_update_fn(impl=registry.TORCH_REF)
+        for i in range(TP_STEPS):
+            counters, n = mon.monitor_update_local(
+                TRAIN_MONITOR, mparams, counters, n, batch["tokens"],
+                torch.tensor(i, dtype=torch.int32, device=device), update_fn=plain,
+                impl=registry.TORCH_REF)
+    result["monitor_equal"] = (equal(local(state.monitor.counters)[0], counters)
+                               and equal(local(state.monitor.n)[0], n))
+    result["run"] = {"losses": losses, "step_s": seconds, "metrics": {
+        k: float(v) for k, v in out.items()}}
+    del state, step, opt
+    torch.cuda.empty_cache()
+    log(f"train_tp rank {rank}: (b) done at {time.perf_counter() - t0:.1f} s")
+    return result
+
+
+def tp_flash_counts(launches: dict, dispatch: dict) -> tuple[dict, dict]:
+    """The flash launches of a count, and the flash dispatches by (op, impl)."""
+    flash = {k: launches[k] for k in ("flash_attention", "flash_attention_tc",
+                                       "flash_attention_bwd")}
+    by = {}
+    for labels, n in dispatch.items():
+        label = dict(labels)
+        by[label["kernel"], label["impl"]] = by.get((label["kernel"], label["impl"]), 0) + n
+    return flash, by
+
+
+def phase_train_tp(smi: str) -> dict[str, int]:
+    """Tensor-parallel training (path ``train_tp``) on two spawned gloo
+    ranks on the card, (data=1, model=2): (a)'s gates against the
+    one-process step of the same Dims, (b)'s run; the launches of every
+    rank's mesh runs."""
+    t_phase = time.perf_counter()
+    log(f"train_tp: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved on the card beside the ranks")
+    _, ranks = spawn_ranks(train_tp_rank, "train_tp", TP_TIMEOUT_S)
+    layers, full = TRAIN_CHECK_LAYERS, TP_RUN_LAYERS
+    gate_fwd = 2 * layers * TP_CHECK_STEPS * 2          # forward and recompute; two runs
+    gate_bwd = layers * TP_CHECK_STEPS * 2
+    run_fwd, run_bwd = 2 * full * TP_STEPS, full * TP_STEPS
+    total = dict.fromkeys(COUNTS, 0)
+    for r, res in enumerate(ranks):
+        flash, by = tp_flash_counts(res["gate_launches"], res["gate_dispatch"])
+        require(flash == {"flash_attention": gate_fwd, "flash_attention_tc": 0,
+                          "flash_attention_bwd": gate_bwd}
+                and by == {("flash_attention", registry.CUDA_SM90): gate_fwd,
+                           ("flash_attention_bwd", registry.CUDA_SM90): gate_bwd},
+                f"train_tp (a) rank {r}: flash launches {flash}, dispatches {by}; predicted "
+                f"{gate_fwd} f32 forward and {gate_bwd} backward, all {registry.CUDA_SM90}")
+        flash, by = tp_flash_counts(res["run_launches"], res["run_dispatch"])
+        require(flash == {"flash_attention": 0, "flash_attention_tc": run_fwd,
+                          "flash_attention_bwd": run_bwd}
+                and by.get(("flash_attention", registry.CUDA_SM90)) == run_fwd
+                and by.get(("flash_attention_bwd", registry.CUDA_SM90)) == run_bwd
+                and all(impl == registry.CUDA_SM90 for _, impl in by),
+                f"train_tp (b) rank {r}: flash launches {flash}, dispatches {by}; predicted "
+                f"{run_fwd} bf16 forward and {run_bwd} backward, all {registry.CUDA_SM90}")
+        run = res["run_launches"]
+        per_level = TP_STEPS * TRAIN_LEVELS
+        require(run["sample_weights"] == TP_STEPS and run["fingerprint"] == per_level
+                and run["sketch_update"] == per_level,
+                f"train_tp (b) rank {r}: monitor launches {run}; predicted {TP_STEPS} "
+                f"sample_weights, {per_level} fingerprint and sketch_update")
+        for counts in (res["gate_launches"], run):
+            for name, n in counts.items():
+                total[name] += n
+        for key, what in (("qwen", f"{TRAIN_ARCH} at {layers} layers"),
+                          ("qwen_sp", f"{TRAIN_ARCH} at {layers} layers, seq_parallel"),
+                          ("moe", f"{MOE_ARCH} at {TP_MOE_LAYERS} layers")):
+            gap = res[key]
+            free_limit = 2 * TRAIN_LR * gap["steps"]
+            require(gap["loss"] <= TP_LOSS_RTOL and gap["grad"] <= TP_GRAD_RTOL
+                    and gap["param"] <= TP_PARAM_RTOL and 2 * gap["held"] >= gap["elements"]
+                    and gap["free"] <= free_limit,
+                    f"train_tp (a) {what} rank {r}: loss {gap['loss']:.3g}, gradients "
+                    f"{gap['grad']:.3g}, parameters {gap['param']:.3g} from the one-process "
+                    f"step where held ({gap['held']} of {gap['elements']} elements), "
+                    f"{gap['free']:.3g} elsewhere (limits {TP_LOSS_RTOL}, {TP_GRAD_RTOL}, "
+                    f"{TP_PARAM_RTOL}, half the elements held, {free_limit:.3g} absolute)")
+            require(gap["metrics"] == ranks[0][key]["metrics"],
+                    f"train_tp (a) {what}: rank {r}'s metrics differ from rank 0's")
+            log(f"train_tp (a) {what}, rank {r}, f32, (data=1, model=2) on gloo over CUDA "
+                f"tensors: losses {[m['loss'] for m in gap['metrics']]} within "
+                f"{gap['loss']:.3g} of the one-process step (relative); {gap['leaves']} "
+                f"gradient leaves within {gap['grad']:.3g} of their max |g|; parameters after "
+                f"the steps within {gap['param']:.3g} of the largest |p| ({gap['held']} of "
+                f"{gap['elements']} elements held), the others within {gap['free']:.3g} "
+                f"absolute (2 lr a step: {free_limit:.3g}); step s {[round(x, 3) for x in gap['step_s']]}; "
+                f"metrics equal rank 0's bit for bit; {smi}")
+        require(res["monitor_equal"], f"train_tp (b) rank {r}: the monitor differs from its "
+                                      f"torch_ref twin's")
+        losses = res["run"]["losses"]
+        require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+                f"train_tp (b) rank {r}: losses {losses}")
+        require(res["run"]["metrics"] == ranks[0]["run"]["metrics"],
+                f"train_tp (b): rank {r}'s metrics differ from rank 0's")
+        step_ms = float(np.median(res["run"]["step_s"][1:])) * 1e3
+        log(f"train_tp (b) rank {r}: {TRAIN_ARCH} ({full} of "
+            f"{configs.get(TRAIN_ARCH).num_layers} layers, depth cut) on (data=1, model=2), bf16, "
+            f"remat full, sharded Q8Adam, merged monitor, 1 x {TRAIN_LONG_TOKENS}, {TP_STEPS} "
+            f"steps (a correctness run: its collectives cross host memory through gloo, not a "
+            f"speed of tensor parallelism): step ms (median of steps 2-{TP_STEPS}) "
+            f"{step_ms:.1f}, first step {res['run']['step_s'][0] * 1e3:.1f}; tokens/s "
+            f"{TRAIN_LONG_TOKENS / step_ms * 1e3:.0f}; peak allocated {res['peak_gb']:.2f} GB "
+            f"(reserved {res['peak_reserved_gb']:.2f}); "
+            f"losses {losses}; {run_fwd} bf16 flash forward and {run_bwd} backward launches, "
+            f"all {registry.CUDA_SM90}; the monitor equals its torch_ref twin; {smi}")
+    flips, tokens = ranks[0]["flips"]
+    log(f"train_tp (a): the one-process MoE step took the mesh run's expert choices; its own "
+        f"top-k would have chosen otherwise for {flips} of {tokens} (token, layer) pairs")
+    log(f"train_tp: the two ranks took {ranks[0]['seconds']:.1f} / {ranks[1]['seconds']:.1f} s "
+        f"after start; gloo carried every CUDA collective; the kernels were loaded from the "
+        f"build, not rebuilt")
+    log(f"train_tp path launches: {total}")
+    log(f"train_tp phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
@@ -4180,8 +4518,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     with one_rank_group(device):
         by_path["sharded"] = phase_sharded(device, records, smi)
+        # From here on the cache's segments grow in place: the 36-layer mesh
+        # step's Q8 update asks for 6 GB int64 blocks, and after the earlier
+        # phases fixed segments left 23 GB reserved but unallocated, none of
+        # it in one piece that large, and the card ran out.
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
         by_path["train_mesh"] = phase_train_mesh(device, smi)
     by_path["serve_mesh"] = phase_serve_mesh(device, smi)
+    torch.cuda.empty_cache()
+    by_path["train_tp"] = phase_train_tp(smi)
 
     rows = phase_numbers(device, cfg, params, records, tenants, by_path, est_out)
     log(f"total {time.perf_counter() - t_start:.1f} s")

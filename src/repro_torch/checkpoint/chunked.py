@@ -17,6 +17,13 @@ in a staging directory that is renamed into place (atomic on POSIX).
 Leaves go through ``.cpu().numpy()``: float32, int32 and int8 leaves
 (parameters, moments, Q8 codes, monitor counters, steps) round-trip; a
 bfloat16 leaf, which numpy cannot hold, raises ``TypeError``.
+
+A tree that holds DTensors (a train state on a mesh) is saved by every
+rank of the default group together: each leaf is gathered whole
+(``full_tensor()``, a collective, in leaf order on every rank), rank 0
+writes the full arrays in the format above, and the other ranks wait at
+a barrier until its rename has committed.  ``restore_checkpoint(
+shardings=)`` gives each rank its block back.
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .. import platform
 from ..launch.shardings import distribute
@@ -54,6 +63,8 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError("a bfloat16 leaf has no numpy dtype; checkpoint float32 leaves")
@@ -64,14 +75,22 @@ def _to_numpy(leaf) -> np.ndarray:
 def save_checkpoint(ckpt_dir: str, step: int, tree, *, chunks: int = 4,
                     extra: dict | None = None, keep: int = 3) -> str:
     """Write ``tree`` (a tree of tensors or arrays) as a chunked
-    checkpoint; returns its path."""
+    checkpoint; returns its path.  A tree holding DTensors is written by
+    rank 0 of the default group, every rank calling (module docstring)."""
     leaves, treedef = tree_flatten(tree)
+    sharded = any(isinstance(leaf, DTensor) for leaf in leaves)
+    writer = not sharded or dist.get_rank() == 0
     final = _step_dir(ckpt_dir, step)
     tmp = final + f".tmp-{secrets.token_hex(4)}"
-    os.makedirs(tmp, exist_ok=True)
+    if writer:
+        os.makedirs(tmp, exist_ok=True)
 
     manifest_leaves = []
     for i, leaf in enumerate(leaves):
+        if not writer:
+            if isinstance(leaf, DTensor):
+                leaf.full_tensor()      # the gather every rank joins; rank 0 keeps it
+            continue
         arr = _to_numpy(leaf)
         nchunks = min(chunks, arr.shape[0]) if arr.ndim > 0 else 1
         bounds = np.array_split(np.arange(arr.shape[0] if arr.ndim else 1), nchunks)
@@ -81,15 +100,17 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *, chunks: int = 4,
         manifest_leaves.append({"id": i, "shape": list(arr.shape),
                                 "dtype": str(arr.dtype), "chunks": nchunks})
 
-    man = Manifest(step=step, treedef=repr(treedef), leaves=manifest_leaves,
-                   extra=extra or {})
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        f.write(man.to_json())
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)          # atomic commit
-
-    _gc(ckpt_dir, keep)
+    if writer:
+        man = Manifest(step=step, treedef=repr(treedef), leaves=manifest_leaves,
+                       extra=extra or {})
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            f.write(man.to_json())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)          # atomic commit
+        _gc(ckpt_dir, keep)
+    if sharded:
+        dist.barrier()                 # no rank reads the directory before the commit
     return final
 
 

@@ -153,13 +153,15 @@ class DataParallel:
         gradient): a sequence-sharded decode's scores."""
         return gather_forward(x, -1, self.group)
 
-    def moe(self, fn, x: torch.Tensor):
+    def moe(self, fn, x: torch.Tensor, seq_shards: int = 1):
         """``fn(x, group=, mean=None) -> (out, aux)`` (a bound
         ``models.moe.moe_ffn``) on the global batch's routing groups.
-        With ``seq_sharded`` every rank holds the global batch: ``fn(x)``."""
+        With ``seq_sharded`` every rank holds the global batch: ``fn(x)``.
+        ``seq_shards``: ``x`` holds one of that many blocks of the sequence
+        (tensor parallelism's ``seq_parallel``; ``fn`` gathers them)."""
         if self.seq_sharded:
             return fn(x)
-        b, s, _ = x.shape
+        b, s = x.shape[0], x.shape[1] * seq_shards
         group = min(moe_mod.GROUP, b * s * self.world)
         if (b * s) % group == 0:
             out, aux = fn(x, group=group, mean=self.mean)

@@ -59,7 +59,7 @@ def _ffn(params, x, dims: Dims, aux, dp=None, tp=None):
                                top_k=cfg.num_experts_per_tok,
                                capacity_factor=cfg.capacity_factor, tp=tp)
         h = rmsnorm(params["mlp_norm"], x, cfg.rms_eps)
-        h, moe_aux = fn(h) if dp is None else dp.moe(fn, h)
+        h, moe_aux = fn(h) if dp is None else dp.moe(fn, h, 1 if tp is None else tp.seq_shards)
         if aux is not None:
             aux = {k: aux.get(k, 0.0) + v for k, v in moe_aux.items()}
         return x + h, aux

@@ -13,18 +13,20 @@ Public entry points (cfg/dims describe the model):
 
     init_params(generator, cfg, dims, device=None) -> params
     forward(params, cfg, dims, tokens, ...)        -> (logits, aux)     [train]
-    lm_loss(logits, labels, true_vocab)            -> scalar
+    lm_loss(logits, labels, true_vocab, ...)       -> scalar
     init_cache(cfg, dims, batch, max_len, ...)     -> Cache
     prefill(params, cfg, dims, tokens, ...)        -> (logits_last, Cache)
     decode_step(params, cfg, dims, token, cache)   -> (logits, Cache)
 
-Under a mesh, ``prefill``, ``decode_step`` and ``init_cache`` take ``tp``
-(a ``launch.tensor_parallel.TensorParallel``: the rank's block of the
-heads, ``d_ff`` columns, vocabulary, experts and SSM heads) and ``dp`` (a
-``launch.data_parallel.DataParallel`` over the batch axes: the
-FSDP-placed weights gathered one layer at a time, the MoE routing groups
-of the global batch, and with ``seq_sharded`` the rank's block of the
-cache's positions); ``launch/serve.py`` builds both from a mesh.
+Under a mesh, ``forward``, ``prefill``, ``decode_step`` and ``init_cache``
+take ``tp`` (a ``launch.tensor_parallel.TensorParallel``: the rank's block
+of the heads, ``d_ff`` columns, vocabulary, experts and SSM heads; in
+training, with ``seq_parallel``, its block of the sequence between
+blocks) and ``dp`` (a ``launch.data_parallel.DataParallel`` over the
+batch axes: the FSDP-placed weights gathered one layer at a time, the MoE
+routing groups of the global batch, and with ``seq_sharded`` the rank's
+block of the cache's positions), and ``lm_loss`` takes ``tp``;
+``launch/serve.py`` and ``launch/train.py`` build both from a mesh.
 
 Rematerialisation (``forward``'s ``remat``) wraps each layer period, the
 JAX package's scan body, in ``torch.utils.checkpoint``: ``"none"`` keeps
@@ -39,6 +41,7 @@ import functools
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch.utils import checkpoint as _ckpt
 
 from .. import platform
@@ -189,17 +192,17 @@ def _positions(tokens):
     return torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
 
 
-def _logits(wp, cfg: ArchConfig, x, tp=None):
+def _logits(wp, cfg: ArchConfig, x, tp=None, *, gather: bool = True):
     """Logits over the (padded) vocabulary; under ``tp`` the rank's block
-    of the vocabulary, its columns all-gathered (before any
-    ``mask_padded_vocab``)."""
+    of the vocabulary, its columns all-gathered with ``gather`` (before
+    any ``mask_padded_vocab``), else the block (training's loss)."""
     if tp is not None:
         x = tp.copy(x)
     if cfg.tie_embeddings:
         lg = torch.einsum("bsd,vd->bsv", x, wp["embed"])
     else:
         lg = torch.einsum("bsd,dv->bsv", x, wp["lm_head"])
-    return lg if tp is None else tp.gather(lg, -1)
+    return lg if tp is None or not gather else tp.gather(lg, -1)
 
 
 def _zero_aux(device):
@@ -249,8 +252,9 @@ def _run_groups(params, cfg, dims, x, positions, *, causal, enc_mem=None, remat=
     over layers (None without experts), caches stacked per group as the
     parameters are.  Under ``dp`` a period gathers its parameters inside
     its remat region; under ``tp`` each layer runs on the rank's block of
-    the model axis, and its output is held equal across the model group
-    (``tp.check_replicated``)."""
+    the model axis, and its output, and in the backward the gradient that
+    reaches it, are held equal across the model group
+    (``tp.check_replicated``, ``tp.check_grad``)."""
     aux = _zero_aux(x.device) if cfg.num_experts > 0 else None
     caches = [] if collect_cache else None
     for gi, ((pspec, count), gparams) in enumerate(zip(layer_groups(cfg), params["groups"])):
@@ -271,8 +275,10 @@ def _run_groups(params, cfg, dims, x, positions, *, causal, enc_mem=None, remat=
 
         body = _remat_wrap(body, remat)
         outs = []
-        for pslice in _unstack(gparams, count):
+        for li, pslice in enumerate(_unstack(gparams, count)):
             x, aux, layer_out = body(x, aux, pslice)
+            if tp is not None:
+                tp.check_grad(x, f"group {gi} period {li}")
             if collect_cache:
                 outs.append(layer_out)
         if collect_cache:
@@ -283,9 +289,10 @@ def _run_groups(params, cfg, dims, x, positions, *, causal, enc_mem=None, remat=
 def _encode(params, cfg, dims, enc_feats, *, remat="none", impl=None, dp=None, tp=None):
     """Encoder stack over precomputed frontend features (B, S_src, d):
     non-causal self-attention layers, each under ``remat``, then the
-    encoder's norm."""
-    x = enc_feats
-    positions = _positions(x)
+    encoder's norm (under ``tp.seq_parallel`` on the rank's block of the
+    source positions; the rotary positions stay global)."""
+    positions = _positions(enc_feats)
+    x = enc_feats if tp is None else tp.seq_block(enc_feats)
 
     def body(x, pslice):
         if dp is not None:
@@ -309,7 +316,7 @@ def _encode(params, cfg, dims, enc_feats, *, remat="none", impl=None, dp=None, t
 def forward(params, cfg: ArchConfig, dims: Dims, tokens, *, enc_feats=None,
             compute_dtype=torch.bfloat16, remat: str = "full", ssm_chunk: int = 128,
             attn_chunk: int = 2048, probs_dtype=torch.float32, impl: str | None = None,
-            dp=None):
+            dp=None, tp=None):
     """Teacher-forced full-sequence forward.  tokens (B, S) integers.
 
     Returns (logits (B, S, vocab_padded) float32, aux): aux holds the MoE
@@ -321,34 +328,51 @@ def forward(params, cfg: ArchConfig, dims: Dims, tokens, *, enc_feats=None,
     attention probabilities' type; ``impl`` as for :func:`prefill`.
     ``dp`` (a ``launch.data_parallel.DataParallel``) runs a data-parallel
     rank: ``params`` and ``tokens`` are the rank's own blocks and rows,
-    gathered as the layers need them.
+    gathered as the layers need them.  ``tp`` (a ``launch.tensor_parallel
+    .TensorParallel`` of ``dims.tp`` ranks, else ``ValueError``) runs a
+    rank of the model axis on its blocks of the parameters; the logits are
+    then the rank's block of the vocabulary, (B, S, vocab_padded / tp),
+    which :func:`lm_loss` takes with the same ``tp``.  With
+    ``tp.seq_parallel`` the activations between blocks hold the rank's
+    block of the sequence (S a multiple of tp, else ``ValueError``).
     """
     if remat not in REMAT_MODES:
         raise ValueError(remat)
+    if tp is not None and tp.size != dims.tp:
+        raise ValueError(f"Dims built for tp={dims.tp} on a model axis of {tp.size}")
     wp = _cast(params, compute_dtype)
     if dp is not None:
         wp = dp.gather_top(wp)
     device = wp["embed"].device
     tokens = torch.as_tensor(tokens, device=device)
-    x = embed(wp["embed"], tokens)
+    if tp is not None and tokens.shape[1] % tp.seq_shards:
+        raise ValueError(f"{tokens.shape[1]} positions do not split over {tp.seq_shards} "
+                         f"sequence blocks")
+    x = embed(wp["embed"], tokens, tp)
     enc_mem = None
     if cfg.is_encdec:
         if enc_feats is None:
             raise ValueError(f"{cfg.name} is an encoder-decoder: forward needs enc_feats")
         enc_mem = _encode(wp, cfg, dims,
                           torch.as_tensor(enc_feats, device=device).to(compute_dtype),
-                          remat=remat, impl=impl, dp=dp)
+                          remat=remat, impl=impl, dp=dp, tp=tp)
     x, aux, _ = _run_groups(wp, cfg, dims, x, _positions(tokens), causal=True,
                             enc_mem=enc_mem, remat=remat, ssm_chunk=ssm_chunk,
-                            attn_chunk=attn_chunk, probs_dtype=probs_dtype, impl=impl, dp=dp)
+                            attn_chunk=attn_chunk, probs_dtype=probs_dtype, impl=impl, dp=dp,
+                            tp=tp)
     x = rmsnorm(wp["final_norm"], x, cfg.rms_eps)
-    lg = _logits(wp, cfg, x).to(torch.float32)
+    lg = _logits(wp, cfg, x, tp, gather=False).to(torch.float32)
     return lg, (aux if aux is not None else _zero_aux(device))
 
 
-def lm_loss(logits, labels, true_vocab: int, *, mask=None):
+def lm_loss(logits, labels, true_vocab: int, *, mask=None, tp=None):
     """Cross entropy over the *unpadded* vocabulary (padded columns
-    masked), the mean over tokens, or over ``mask``'s tokens."""
+    masked), the mean over tokens, or over ``mask``'s tokens.  Under a
+    ``tp`` of more than one rank ``logits`` are the rank's vocabulary
+    block (:func:`forward`), and the loss is the whole vocabulary's, the
+    same bits on every rank (:func:`_vocab_parallel_nll`)."""
+    if tp is not None and tp.size > 1:
+        return _token_mean(_vocab_parallel_nll(logits, labels, true_vocab, tp), mask)
     lg = mask_padded_vocab(logits, true_vocab)
     lse = torch.logsumexp(lg, dim=-1)
     labels = torch.as_tensor(labels, device=lg.device).to(torch.int64)
@@ -360,10 +384,39 @@ def lm_loss(logits, labels, true_vocab: int, *, mask=None):
     valid = (labels >= 0) & (labels < lg.shape[-1])
     num = torch.gather(lg, -1, torch.where(valid, labels, 0)[..., None])[..., 0]
     nll = lse - torch.where(valid, num, 0.0)
+    return _token_mean(nll, mask)
+
+
+def _token_mean(nll, mask):
     if mask is None:
         return nll.mean()
-    mask = torch.as_tensor(mask, device=lg.device).to(nll.dtype)
+    mask = torch.as_tensor(mask, device=nll.device).to(nll.dtype)
     return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def _vocab_parallel_nll(logits, labels, true_vocab: int, tp):
+    """Per-token cross entropy from the ranks' vocabulary blocks, as GSPMD
+    computes it from ``logits_pspec``: the row max all-reduced over the
+    model group (a max is exact; it only steadies the exponentials, so it
+    takes no gradient), the sum of exponentials all-reduced (*g*: each
+    rank's gradient of its block is the softmax's), and the label's logit
+    taken from the rank that owns it, zeros elsewhere, summed.  Padded
+    columns are masked by their global index.  The logits are never
+    gathered: at 10,240 tokens of a 151,936 vocabulary that is 3.1 GB a
+    rank."""
+    block = logits.shape[-1]
+    start = tp.rank * block
+    col = start + torch.arange(block, device=logits.device)
+    lg = torch.where(col >= true_vocab, torch.finfo(logits.dtype).min, logits)
+    m = lg.detach().amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+    lse = m + torch.log(tp.all_reduce(torch.exp(lg - m[..., None]).sum(dim=-1)))
+    labels = torch.as_tensor(labels, device=lg.device).to(torch.int64)
+    # as the one-process loss: a label outside [0, V) takes no logit
+    local = labels - start
+    own = (labels < block * tp.size) & (local >= 0) & (local < block)
+    num = torch.gather(lg, -1, torch.where(own, local, 0)[..., None])[..., 0]
+    return lse - tp.all_reduce(torch.where(own, num, 0.0))
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,16 @@ columns.  The router logits are all-gathered before the softmax and
 ties; dispatch and combine then take the rank's experts' slice, and the
 routed output is a partial sum over the group.  ``moe_capacity`` stays a
 function of the global E.
+
+The backward of that slice is a trap: each rank sends back only its
+experts' part of d(combine), and through the top-k gates and the softmax
+that part reaches every expert's logit, so the rank's block of d(router
+logits) is a partial too, and the logits' gather keeps only a block.
+The probabilities that feed the dispatch therefore pass through
+``tp.sum_grads`` (*f*: the ranks' partial gradients summed, a (G, S, E)
+all-reduce, far smaller than combine's (G, S, E, C)); the aux losses read
+the probabilities before it, since their gradient is already whole on
+every rank and summing it would count it tp times.
 """
 from __future__ import annotations
 
@@ -97,13 +107,13 @@ def moe_ffn(params, x, *, num_experts: int, top_k: int, capacity_factor: float,
     ``mean`` maps the aux losses' means over these tokens to means over a
     larger batch (a data-parallel step's ranks; None: these tokens are
     the batch).  ``tp``: the rank's experts (module docstring)."""
-    b, s, d = x.shape
+    xin = x if tp is None else tp.copy(x)
+    b, s, d = xin.shape          # under tp.seq_parallel the gathered sequence
     t = b * s
     group = min(GROUP if group is None else group, t)
     if t % group:
         raise ValueError(f"{t} tokens do not split into groups of {group}")
     g = t // group
-    xin = x if tp is None else tp.copy(x)
     xt = xin.reshape(g, group, d)
 
     router_logits = torch.einsum("gsd,de->gse", xt, params["router"]).to(torch.float32)
@@ -111,7 +121,8 @@ def moe_ffn(params, x, *, num_experts: int, top_k: int, capacity_factor: float,
         router_logits = tp.gather(router_logits, -1)
     probs = torch.softmax(router_logits, dim=-1)
     capacity = moe_capacity(group, top_k, capacity_factor, num_experts)
-    dispatch, combine, gates, idx = _dispatch_tensors(probs, top_k, capacity)
+    routed = probs if tp is None else tp.sum_grads(probs)
+    dispatch, combine, gates, idx = _dispatch_tensors(routed, top_k, capacity)
     if tp is not None:
         first, count = tp.block(num_experts)
         if params["w_gate"].shape[0] != count:

@@ -21,6 +21,15 @@ The driver owns the train loop around ``launch.train.make_train_step``:
 The step's end is a read of its loss (the JAX package waits with
 ``jax.block_until_ready``).  Restored leaves go to the template's
 devices.
+
+On a mesh every rank runs its own driver on the same ``ckpt_dir`` and
+the same steps: the state's DTensors are checkpointed whole by rank 0
+(``checkpoint.save_checkpoint``, a collective), ``shardings`` (the
+reference's keyword: ``launch.train.state_shardings``' tree) gives each
+rank its block back on restore, and the monitor reaches the telemetry as
+the whole (global) state, as the reference's global array does.  A
+failure must strike every rank at the same step, as
+``inject_failure_at`` does, since the restore's collectives run on all.
 """
 from __future__ import annotations
 
@@ -29,12 +38,20 @@ import statistics
 import time
 from typing import Any, Callable
 
+from torch.distributed.tensor import DTensor
+
 from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
-from ..sketchstream.monitor import monitor_estimate
+from ..optim.adamw import local
+from ..sketchstream.monitor import MonitorState, monitor_estimate
 
 
 class SimulatedFailure(RuntimeError):
     pass
+
+
+def _whole(monitor: MonitorState) -> MonitorState:
+    """The monitor with each DTensor leaf gathered whole (every rank)."""
+    return MonitorState(*(x.full_tensor() if isinstance(x, DTensor) else x for x in monitor))
 
 
 @dataclasses.dataclass
@@ -52,13 +69,15 @@ class DriverConfig:
 class TrainDriver:
     def __init__(self, step_fn, init_state, make_batch: Callable[[int], Any],
                  cfg: DriverConfig, *, monitor_cfg=None, state_template=None,
-                 service_client=None):
-        """``make_batch(step) -> batch`` must be deterministic in step."""
+                 shardings=None, service_client=None):
+        """``make_batch(step) -> batch`` must be deterministic in step;
+        ``shardings`` places the restored state (module docstring)."""
         self.step_fn = step_fn
         self.cfg = cfg
         self.make_batch = make_batch
         self.monitor_cfg = monitor_cfg
         self.service_client = service_client
+        self.shardings = shardings
         self.state = init_state
         self.template = state_template if state_template is not None else init_state
         self.metrics_log: list[dict] = []
@@ -72,17 +91,18 @@ class TrainDriver:
     # ------------------------------------------------------------------
     @property
     def step(self) -> int:
-        return int(self.state.step)
+        return int(local(self.state.step))
 
     def _checkpoint(self):
         save_checkpoint(self.cfg.ckpt_dir, self.step, self.state, keep=self.cfg.keep)
         self.events.append({"kind": "checkpoint", "step": self.step})
 
     def _restore(self):
-        state, man = restore_checkpoint(self.cfg.ckpt_dir, self.template)
+        state, man = restore_checkpoint(self.cfg.ckpt_dir, self.template,
+                                        shardings=self.shardings)
         self.state = state
         if self.service_client is not None and self.state.monitor is not None:
-            self.service_client.resync(self.state.monitor)
+            self.service_client.resync(_whole(self.state.monitor))
         self.events.append({"kind": "restore", "step": man.step})
         return man.step
 
@@ -131,10 +151,10 @@ class TrainDriver:
                         and getattr(self.state, "monitor", None) is not None
                         and step % self.cfg.sketch_log_every == 0):
                     if self.service_client is not None:
-                        self.service_client.publish(self.state.monitor)
+                        self.service_client.publish(_whole(self.state.monitor))
                         self.sketch_log.append(self.service_client.log_entry(step))
                     else:
-                        est = monitor_estimate(self.monitor_cfg, self.state.monitor)
+                        est = monitor_estimate(self.monitor_cfg, _whole(self.state.monitor))
                         self.sketch_log.append({"step": step, **est["g"]})
                 if step > 0 and step % self.cfg.ckpt_every == 0:
                     self._checkpoint()

@@ -14,8 +14,9 @@ near-duplicate count.
 
 The JAX package's ``sketchstream/monitor.py``.  The training step
 (``launch/train.py``) runs the merged mode, one shard updated with the
-whole batch; the ``shard_map`` call site of the deferred mode waits for
-the multi-card slice (ROADMAP queue 1).
+whole batch, or on a mesh with a shard per batch rank the deferred mode,
+each rank's block updated with its own rows (the JAX package's
+``shard_map`` call site).
 """
 from __future__ import annotations
 

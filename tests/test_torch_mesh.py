@@ -18,10 +18,10 @@ Q8Adam, elastic restore and data-parallel train step.
   within 1e-6 relative, every gradient leaf within 1e-5 of its max |g|);
   the deferred monitor against JAX's ``monitor_update_local`` on each
   rank's rows and the merged one on the whole batch, bit for bit; a mesh
-  with a model axis of 2 refused; each rank's Q8 codes and scales after
-  three steps against JAX's (data=2, model=1) run on two host devices (a
-  subprocess); a checkpoint restored onto the mesh with target
-  shardings.
+  with a model axis of 2 and Dims for tp=1 refused; each rank's Q8 codes
+  and scales after three steps against JAX's (data=2, model=1) and
+  (data=1, model=2) runs on two host devices (one subprocess); a
+  checkpoint restored onto the mesh with target shardings.
 """
 import functools
 
@@ -313,26 +313,34 @@ def test_merged_monitor_matches_jax_on_the_whole_batch(ranks):
         assert float(n[0]) == want_n == case[3]
 
 
-def test_tensor_parallel_mesh_is_refused(ranks):
+def test_model_axis_needs_its_dims(ranks):
+    """A (data=1, model=2) mesh with Dims built for tp=1 is refused."""
     ranks, _ = ranks
     for res in ranks:
-        assert "ROADMAP.md queue 1 item 1" in res["tensor_parallel"]
+        assert "Dims built for tp=1 on a model axis of 2" in res["dims_refused"]
 
 
-def test_q8_sharded_two_ranks_match_jax(ranks):
+@pytest.mark.parametrize("key,placement,axis", [
+    ("q8", (SH.Shard(0), SH.Replicate()), 0),
+    ("q8_tp", (SH.Replicate(), SH.Shard(1)), 1)], ids=["data2", "model2"])
+def test_q8_sharded_two_ranks_match_jax(ranks, key, placement, axis):
+    """Each rank's Q8 codes and scales after Q8_STEPS steps against JAX's
+    two-device run: w split over data (rows) or over model (columns); the
+    rank's rows of the codes are its quantized local block either way."""
     ranks, want = ranks
+    prefix = "" if key == "q8" else "tp_"
     for r, res in enumerate(ranks):
-        q8 = res["q8"]
-        assert q8["placements"]["w"] == (SH.Shard(0), SH.Replicate())
+        q8 = res[key]
+        assert q8["placements"]["w"] == placement
         for k, p in q8["params"].items():
-            whole = want[f"p_{k}"]
-            block = np.split(whole, cases.WORLD)[r] if k == "w" else whole
+            whole = want[f"{prefix}p_{k}"]
+            block = np.split(whole, cases.WORLD, axis=axis)[r] if k == "w" else whole
             np.testing.assert_allclose(p.numpy(), block, rtol=0, atol=TOL)
         pairs = []
         for moment in ("m", "v"):
             for k, (codes, scales) in q8[moment].items():
-                jc = np.split(want[f"{moment}_{k}_codes"], cases.WORLD)[r]
-                js = np.split(want[f"{moment}_{k}_scales"], cases.WORLD)[r]
+                jc = np.split(want[f"{prefix}{moment}_{k}_codes"], cases.WORLD)[r]
+                js = np.split(want[f"{prefix}{moment}_{k}_scales"], cases.WORLD)[r]
                 pairs.append(((codes, scales), (jc, js)))
         _codes_agree(pairs)
 

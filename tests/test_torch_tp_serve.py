@@ -120,33 +120,6 @@ def _jax_run(name, tp, batch):
     return out
 
 
-def _assemble(blocks, spec, shape):
-    """The whole tensor from every rank's block under ``spec`` on a mesh
-    of ``shape``; blocks that hold the same region (replicas) must be
-    equal bit for bit."""
-    mesh = AbstractMesh(shape, NAMES)
-    sizes = dict(zip(NAMES, shape))
-    axes = [() if e is None else (e if isinstance(e, tuple) else (e,)) for e in spec]
-    full_shape = [n * math.prod(sizes[a] for a in ax) for n, ax in zip(blocks[0].shape, axes)]
-    full = torch.empty(full_shape, dtype=blocks[0].dtype)
-    seen = {}
-    for rank, block in enumerate(blocks):
-        where = coordinate(mesh, rank)
-        region = []
-        for n, ax in zip(block.shape, axes):
-            index = 0
-            for a in ax:
-                index = index * sizes[a] + where[a]
-            region.append(slice(index * n, (index + 1) * n))
-        key = tuple((s.start, s.stop) for s in region)
-        if key in seen:
-            assert same_on_every_rank([seen[key], block]), (spec, rank)
-        seen[key] = block
-        full[tuple(region)] = block
-    assert len(seen) == math.prod(math.prod(sizes[a] for a in ax) for ax in axes)
-    return full
-
-
 def _check_serving(results, name, shape, batch):
     """The ranks' serving of ``name`` on a mesh of ``shape`` against the
     JAX package's meshless run at the same Dims."""
@@ -172,12 +145,12 @@ def _check_serving(results, name, shape, batch):
         parts = [tree_leaves(r[which]) for r in got]
         assert len(specs) == len(parts[0]) == len(want[which]) > 0
         for i, (spec, jleaf) in enumerate(zip(specs, want[which])):
-            whole = _assemble([p[i] for p in parts], spec, shape)
+            whole = tpc.assemble([p[i] for p in parts], spec, shape)
             assert tuple(whole.shape) == jleaf.shape, (which, i)
             np.testing.assert_allclose(whole.to(torch.float32).numpy(),
                                        jleaf.astype(np.float32), rtol=TOL, atol=TOL,
                                        err_msg=f"{name} {which} cache leaf {i} {spec}")
-    lens = _assemble([r["lens"] for r in got], SH.PartitionSpec(
+    lens = tpc.assemble([r["lens"] for r in got], SH.PartitionSpec(
         None if batch < shape[0] else "data"), shape)
     np.testing.assert_array_equal(lens.numpy(), want["lens"])
 

@@ -278,10 +278,12 @@ def test_unknown_remat_and_mesh_raise():
     with pytest.raises(ValueError):
         tM.forward(params, tcfg, tdims, torch.zeros((1, 4), dtype=torch.int32),
                    remat="offload")
-    # a mesh whose model axis is larger than 1 waits for tensor parallelism
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+    # a mesh's model axis needs the Dims of its tp; seq_parallel needs a mesh
+    with pytest.raises(ValueError, match="Dims built for tp=1 on a model axis of 2"):
         ttrain.make_train_step(tcfg, tdims, make_adamw(constant(1e-3)),
                                mesh=AbstractMesh((1, 2), ("data", "model")))
+    with pytest.raises(ValueError, match="seq_parallel"):
+        ttrain.make_train_step(tcfg, tdims, make_adamw(constant(1e-3)), seq_parallel=True)
 
 
 # The train step above CHUNKED_THRESHOLD (patched to 8 in both packages):

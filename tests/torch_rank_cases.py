@@ -219,26 +219,32 @@ def mesh_rank(rank: int, ckpt_dir: str) -> dict:
             "monitor": (local(state.monitor.counters), local(state.monitor.n))}
 
     cfg = configs.reduced("qwen2.5-3b")
+    tp_mesh = make_debug_mesh(1, WORLD, device_type="cpu")
     try:
         train.make_train_step(cfg, compute_dims(cfg, tp=1), make_adamw(constant(1e-3)),
-                              make_debug_mesh(1, WORLD, device_type="cpu"))
-    except NotImplementedError as err:
-        out["tensor_parallel"] = str(err)
+                              tp_mesh)
+    except ValueError as err:
+        out["dims_refused"] = str(err)
 
-    p0, target = q8_case()
-    specs = {"w": SH.PartitionSpec("data", None), "b": SH.PartitionSpec(None)}
-    shard = SH.to_shardings(mesh, specs)
-    params = {k: SH.distribute(torch.from_numpy(v), shard[k]) for k, v in p0.items()}
-    tlocal = torch.from_numpy(target).chunk(WORLD)[rank]
-    opt = make_q8adam_sharded(mesh, constant(0.05), specs, weight_decay=0.0)
-    state = opt.init(params)
-    for _ in range(Q8_STEPS):
-        grads = q8_grads({k: local(v) for k, v in params.items()}, tlocal)
-        params, state, _ = opt.update(grads, state, params)
-    out["q8"] = {"params": {k: local(v) for k, v in params.items()},
-                 "m": {k: tuple(local(x) for x in q) for k, q in state.m.items()},
-                 "v": {k: tuple(local(x) for x in q) for k, q in state.v.items()},
-                 "placements": {k: tuple(v.placements) for k, v in params.items()}}
+    for key, where, specs, dim in (
+            ("q8", mesh, {"w": SH.PartitionSpec("data", None), "b": SH.PartitionSpec(None)}, 0),
+            ("q8_tp", tp_mesh, {"w": SH.PartitionSpec(None, "model"),
+                                "b": SH.PartitionSpec(None)}, 1)):
+        # fresh arrays each run: a replicated leaf's DTensor holds the very
+        # tensor it was given, which the update changes in place
+        p0, target = q8_case()
+        shard = SH.to_shardings(where, specs)
+        params = {k: SH.distribute(torch.from_numpy(v), shard[k]) for k, v in p0.items()}
+        tlocal = torch.from_numpy(target).chunk(WORLD, dim=dim)[rank]
+        opt = make_q8adam_sharded(where, constant(0.05), specs, weight_decay=0.0)
+        state = opt.init(params)
+        for _ in range(Q8_STEPS):
+            grads = q8_grads({k: local(v) for k, v in params.items()}, tlocal)
+            params, state, _ = opt.update(grads, state, params)
+        out[key] = {"params": {k: local(v) for k, v in params.items()},
+                    "m": {k: tuple(local(x) for x in q) for k, q in state.m.items()},
+                    "v": {k: tuple(local(x) for x in q) for k, q in state.v.items()},
+                    "placements": {k: tuple(v.placements) for k, v in params.items()}}
 
     tree = restore_tree()
     rshard = {"w": SH.NamedSharding(mesh, SH.PartitionSpec("data", None)),
@@ -256,9 +262,11 @@ def mesh_rank(rank: int, ckpt_dir: str) -> dict:
 # -- JAX's sharded Q8Adam on two host devices (its own subprocess) ----------
 
 def jax_q8_two_devices(path: str) -> None:
-    """JAX's ``make_q8adam_sharded`` on a (data=2, model=1) mesh of two
-    host devices, Q8_STEPS jitted steps on ``q8_case``; writes each
-    device's params, codes and scales to ``path`` (npz)."""
+    """JAX's ``make_q8adam_sharded`` on two host devices, Q8_STEPS jitted
+    steps on ``q8_case``: on a (data=2, model=1) mesh (keys as they are)
+    and on (data=1, model=2), w's columns over model (keys prefixed
+    ``tp_``); writes each run's params, codes and scales to ``path``
+    (npz)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -267,24 +275,25 @@ def jax_q8_two_devices(path: str) -> None:
     from repro.optim.q8sharded import make_q8adam_sharded
     from repro.optim.schedules import constant
 
-    mesh = make_debug_mesh(2, 1)
-    specs = {"w": P("data", None), "b": P(None)}
-    p0, target = q8_case()
-    params = {k: jax.device_put(jnp.asarray(v), NamedSharding(mesh, specs[k]))
-              for k, v in p0.items()}
-    opt = make_q8adam_sharded(mesh, constant(0.05), specs, weight_decay=0.0)
-    with compat.set_mesh(mesh):
-        state = jax.jit(opt.init)(params)
-        update = jax.jit(opt.update)
-        for _ in range(Q8_STEPS):
-            params, state, _ = update(q8_grads(params, jnp.asarray(target)), state, params)
     out = {}
-    for k in params:
-        out[f"p_{k}"] = np.asarray(params[k])
-        for moment in ("m", "v"):
-            q = getattr(state, moment)[k]
-            out[f"{moment}_{k}_codes"] = np.asarray(q.codes)
-            out[f"{moment}_{k}_scales"] = np.asarray(q.scales)
+    for prefix, shape, specs in (("", (2, 1), {"w": P("data", None), "b": P(None)}),
+                                 ("tp_", (1, 2), {"w": P(None, "model"), "b": P(None)})):
+        mesh = make_debug_mesh(*shape)
+        p0, target = q8_case()
+        params = {k: jax.device_put(jnp.asarray(v), NamedSharding(mesh, specs[k]))
+                  for k, v in p0.items()}
+        opt = make_q8adam_sharded(mesh, constant(0.05), specs, weight_decay=0.0)
+        with compat.set_mesh(mesh):
+            state = jax.jit(opt.init)(params)
+            update = jax.jit(opt.update)
+            for _ in range(Q8_STEPS):
+                params, state, _ = update(q8_grads(params, jnp.asarray(target)), state, params)
+        for k in params:
+            out[f"{prefix}p_{k}"] = np.asarray(params[k])
+            for moment in ("m", "v"):
+                q = getattr(state, moment)[k]
+                out[f"{prefix}{moment}_{k}_codes"] = np.asarray(q.codes)
+                out[f"{prefix}{moment}_{k}_scales"] = np.asarray(q.scales)
     np.savez(path, **out)
 
 

@@ -18,6 +18,7 @@ JAX.
 """
 from __future__ import annotations
 
+import math
 import time
 from pathlib import Path
 
@@ -49,6 +50,39 @@ def frames(cfg, batch: int):
 
 def tp_of(mesh_shape) -> int:
     return mesh_shape[1]
+
+
+NAMES = ("data", "model")
+
+
+def assemble(blocks, spec, shape):
+    """The whole tensor from every rank's block under ``spec`` on a
+    (data, model) mesh of ``shape``; blocks that hold the same region
+    (replicas) must be equal bit for bit."""
+    from repro_torch.launch.mesh import AbstractMesh, coordinate
+    from repro_torch.launch.tensor_parallel import same_on_every_rank
+
+    mesh = AbstractMesh(shape, NAMES)
+    sizes = dict(zip(NAMES, shape))
+    axes = [() if e is None else (e if isinstance(e, tuple) else (e,)) for e in spec]
+    full_shape = [n * math.prod(sizes[a] for a in ax) for n, ax in zip(blocks[0].shape, axes)]
+    full = torch.empty(full_shape, dtype=blocks[0].dtype)
+    seen = {}
+    for rank, block in enumerate(blocks):
+        where = coordinate(mesh, rank)
+        region = []
+        for n, ax in zip(block.shape, axes):
+            index = 0
+            for a in ax:
+                index = index * sizes[a] + where[a]
+            region.append(slice(index * n, (index + 1) * n))
+        key = tuple((s.start, s.stop) for s in region)
+        if key in seen:
+            assert same_on_every_rank([seen[key], block]), (spec, rank)
+        seen[key] = block
+        full[tuple(region)] = block
+    assert len(seen) == math.prod(math.prod(sizes[a] for a in ax) for ax in axes)
+    return full
 
 
 def wait_for(path: Path):
