@@ -151,7 +151,24 @@ w=1024, t=3):
   window 4) against its plain twin bit for bit, ipf joins through the
   fused planner against the reference join, ipf windows expiring to zero,
   the accuracy audit, and a 2-worker in-process cluster of plugin tenants
-  against its oracle.
+  against its oracle;
+* the roofline (inside ``train``, ``train_long`` and ``serve``; printed
+  by ``phase_roofline_report``): one train step, one train_long step, one
+  f32 prefill and one decode step counted with
+  ``launch.roofline.count_cost`` on the card and again on ``meta``
+  tensors: FLOPs by dtype, HBM bytes, kernel-op work and collectives equal
+  as integers, the train steps' meta peak within [0.8, 1.25] of the card's
+  ``max_memory_allocated``, each measured time at least its bound
+  max(compute, memory), and each share (bound over measured) printed with
+  the dominant term and the useful ratio;
+* the dry run (``dryrun`` phase): ``python -m repro_torch.launch.dryrun``
+  for qwen2.5-3b's three cells on the 256-rank mesh, in a process of its
+  own (a fake process group), rank 0's argument bytes against its local
+  blocks';
+* the example twins (``examples`` phase): ``examples/quickstart_torch.py``
+  (its table against the same stream through the plain versions on the
+  card) and ``examples/serve_decode_torch.py`` (its lines, the duplicate
+  requests' tokens equal) on the card.
 
 Every result of a kernel path is compared with the same computation
 through the plain versions on the card (``impl="torch_ref"``); LSH-SS,
@@ -232,6 +249,8 @@ from repro_torch.kernels import fused_query as kfq  # noqa: E402
 from repro_torch.kernels import sample_weights as ksw  # noqa: E402
 from repro_torch.kernels import sketch_moments as ksm  # noqa: E402
 from repro_torch.kernels import sketch_update as ksu  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import roofline as RL  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import shardings as SH  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -249,27 +268,11 @@ from repro_torch.runtime import SimulatedFailure  # noqa: E402
 from repro_torch.service.ingest import ingest_key, ingest_key_grid  # noqa: E402
 from repro_torch.sketchstream import monitor as mon  # noqa: E402
 
-# Peak rates of one H100 SXM (NVIDIA data sheet and Hopper white paper):
-# HBM3 bandwidth, and 32-bit integer operations on the CUDA cores
-# (132 SMs x 64 INT32 lanes x 1.98 GHz boost clock).
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# float32 FMA on the CUDA cores (132 SMs x 128 FP32 lanes x 2 flops x
-# 1.98 GHz), the rate of f32 attention without TF32; and the dense bf16
-# tensor-core rate, the least time of a bf16-input function that
-# accumulates in f32.
-F32_FLOPS_PER_S = 132 * 128 * 2 * 1.98e9
-BF16_TENSOR_FLOPS_PER_S = 989e12
-# The f32 flash kernel does each matrix product as this many bf16 products
-# of split operands (three parts each, the pairs whose indices add up to at
-# most 2): at the bf16 tensor-core rate, its floor at f32 precision.
-F32_SPLIT_PRODUCTS = 6
-# A field element (record column, mask, id, base, hash coefficient,
-# fingerprint) is a uint32 in the functions the kernels compute.
-FIELD_BYTES = 4
-# int32 operations of one threefry2x32 block: 20 rounds of add, rotate and
-# xor, and 12 key additions.
-THREEFRY_OPS = 72
+# Peak rates of one H100 SXM and the kernels' work formulas: the
+# package's (repro_torch/kernels/work.py), which the roofline counts with.
+from repro_torch.kernels.work import (BF16_TENSOR_FLOPS_PER_S, F32_FLOPS_PER_S,  # noqa: E402
+                                      F32_SPLIT_PRODUCTS, HBM_BYTES_PER_S, INT32_OPS_PER_S,
+                                      attention_work, bound_ms, op_work)
 # (d, s, r) of the sample_weights checks: the paper's defaults, the request
 # monitor's all-ones level, a fractional sample size, and levels of 126
 # combinations (the plain version's argsort branch, the kernel's
@@ -642,24 +645,6 @@ def device_ms(fn, calls: int, flush: torch.Tensor) -> tuple[float, float]:
     torch.cuda.synchronize()
     times = [start.elapsed_time(stop) for start, stop in events]
     return float(np.median(times)), host_s / calls * 1e3
-
-
-def bound_ms(nbytes: float, ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
-    """The least time for the work: bytes over HBM bandwidth or operations
-    over their peak rate (default the INT32 one), whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def attention_work(q, k, causal: bool) -> tuple[int, int]:
-    """(bytes, flops) of attention over q (B, Sq, H, hd), k/v (B, Skv, KV,
-    hd): q, k and v read once and the output written once; 4 * hd flops
-    (two multiply-adds per dimension) per visible (query, key) pair."""
-    b, sq, h, hd = q.shape
-    skv = k.shape[1]
-    pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return nbytes, 4 * hd * b * h * pairs
 
 
 # ---------------------------------------------------------------------------
@@ -1566,12 +1551,21 @@ def phase_serve(device) -> dict:
         tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None].to(torch.int32)
         out.append(tok)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    decode_ms = float(np.median(step_s)) * 1e3
+    meta_params = M.init_params(torch.Generator(), cfg, dims, device="meta")
+    _, meta_pcache = check_roofline("serve_prefill", cfg, B * S, False, prefill,
+                                    (params, prompts), prefill, (meta_params, meta_like(prompts)),
+                                    prefill_s * 1e3)
+    meta_cache = serve._rebase_cache(M.init_cache(cfg, dims, B, S + steps, dtype=torch.float32,
+                                                  device="meta"), meta_pcache, S)
+    check_roofline("serve_decode", cfg, B, False, decode, (params, tok, cache), decode,
+                   (meta_params, meta_like(tok), meta_cache), decode_ms)
+    del meta_params, meta_pcache, meta_cache
     log_profile("one more decode step", *profiled(lambda: decode(params, tok, cache))[:3])
     del cache
     require(torch.equal(torch.cat(out, dim=1), tokens), "serve: stepwise tokens != greedy_generate")
     require(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (B, 1, dims.vocab),
             "serve: prefill logits")
-    decode_ms = float(np.median(step_s)) * 1e3
     log(f"serve: prefill {prefill_s * 1e3:.1f} ms ({B * S / prefill_s:.0f} prompt tokens/s); "
         f"decode {decode_ms:.3f} ms per step, median of {len(step_s)} "
         f"({B / (decode_ms / 1e3):.1f} tokens/s); host clock around synchronised work; "
@@ -2248,22 +2242,13 @@ def flash_bwd_row(device, by_path, flush) -> dict:
     return row
 
 
-def pairs_work(items, valid):
-    """(args, bytes, int32 operations) of one fused_pairs call: the
-    histogram is symmetric, so d compares per unordered valid pair."""
-    N, R, d = items.shape
-    m = (valid != 0).sum(dim=1).to(torch.int64)
-    return ((items, valid), N * R * d * FIELD_BYTES + N * R * 4 + N * (d + 1) * 4,
-            d * int((m * (m - 1) // 2).sum()))
-
-
 def estimator_kernel_args(device, cfg, params, est_out):
     """The estimator path's shapes for the three kernels it adds:
     fused_pairs over the 1,024-tenant reservoir query, sketch_update of one
     level of one unfused round (stream 0, round 0, level k = s), and
     sketch_moments of one stream's level."""
     tenants = tile_states(est_out["reservoir"], TENANTS // EST_STREAMS)
-    pairs = pairs_work(tenants.items, (tenants.tags >= 0).to(torch.int32))
+    pairs = with_work("fused_pairs", (tenants.items, (tenants.tags >= 0).to(torch.int32)))
 
     level = proj.lattice(cfg.d, cfg.s)[0]
     values = as_field_tensor(est_out["records"][0][:EST_ROWS], device)
@@ -2275,14 +2260,18 @@ def estimator_kernel_args(device, cfg, params, est_out):
                                    torch.from_numpy(level.ids.astype(np.int64)).to(device),
                                    params.fp_bases)
     counters = est_out["sjpc"].counters[0, 0]
-    t, w = counters.shape
-    n = fp1.numel()
-    update = ((counters, fp1.reshape(-1), fp2.reshape(-1), params.bucket_coeffs[0],
-               params.sign_coeffs[0], weights.to(torch.int32).contiguous()),
-              n * (2 * FIELD_BYTES + 4) + 2 * params.bucket_coeffs[0].numel() * FIELD_BYTES
-              + 2 * counters.numel() * 4, 12 * t * int((weights != 0).sum()))
-    moments = ((counters, counters), counters.numel() * 4 + t * 4, counters.numel())
-    return pairs, update, moments
+    uargs = (counters, fp1.reshape(-1), fp2.reshape(-1), params.bucket_coeffs[0],
+             params.sign_coeffs[0], weights.to(torch.int32).contiguous())
+    return pairs, with_work("sketch_update", uargs), with_work("sketch_moments",
+                                                                (counters, counters))
+
+
+def with_work(op: str, args):
+    """(args, bytes, int32 operations) of one call of ``op`` at this data
+    (``kernels.work``; the plain version gives the output it reads)."""
+    out = registry.kernel_registry().get(op).oracle(*args)
+    w = op_work(op, args, {}, out, exact=True)
+    return args, w.nbytes, w.ops["int32"]
 
 
 def bootstrap_pairs_args(device, cfg, est_out):
@@ -2305,7 +2294,7 @@ def time_pairs_shape(row, key, items, valid, flush) -> None:
     """fused_pairs at another of the main path's shapes: held bit for bit
     against the plain version, and ``key``_shape, _ms, _plain_ms,
     _bound_ms and _bound_by added to its row."""
-    (args, nbytes, ops) = pairs_work(items, valid)
+    (args, nbytes, ops) = with_work("fused_pairs", (items, valid))
     k1, _ = device_ms(lambda: kpairs.fused_pairs(*args), 20, flush)
     k2, _ = device_ms(lambda: kpairs.fused_pairs(*args), 20, flush)
     p1, _ = device_ms(lambda: ref.fused_pairs_ref(*args), 3, flush)
@@ -2355,7 +2344,8 @@ def time_moments_shapes(row, est_out, flush, device) -> None:
     jp, _ = device_ms(lambda: ref.sketch_moments_ref(a, b), 10, flush)
     require(equal(ksm.sketch_moments(a, b), ref.sketch_moments_ref(a, b)),
             "sketch_moments join: timed output differs from the plain version")
-    jb, jby = bound_ms(2 * a.numel() * 4 + t * 4, a.numel())
+    _, j_bytes, j_ops = with_work("sketch_moments", (a, b))
+    jb, jby = bound_ms(j_bytes, j_ops)
     row.update({"join_ms": min(j1, j2), "join_plain_ms": jp, "join_bound_ms": jb,
                 "join_bound_by": jby})
     log(f"time sketch_moments join ({t}, {w}) x 2: kernel {j1:.4f}/{j2:.4f} ms, plain "
@@ -2370,34 +2360,14 @@ def time_moments_shapes(row, est_out, flush, device) -> None:
     o2, _ = device_ms(lambda: one_cta(wide, wide), 100, flush)
     k2, _ = device_ms(lambda: ksm.sketch_moments(wide, wide), 100, flush)
     wp, _ = device_ms(lambda: ref.sketch_moments_ref(wide, wide), 10, flush)
-    wb, wby = bound_ms(wide.numel() * 4 + 3 * 4, wide.numel())
+    _, w_bytes, w_ops = with_work("sketch_moments", (wide, wide))
+    wb, wby = bound_ms(w_bytes, w_ops)
     row.update({"wide_shape": list(wide.shape), "wide_ms": min(k1, k2),
                 "wide_design": "a cluster of up to 8 CTAs per row",
                 "wide_not_kept_ms": min(o1, o2), "wide_not_kept": "one CTA per row",
                 "wide_plain_ms": wp, "wide_bound_ms": wb, "wide_bound_by": wby})
     log(f"time sketch_moments F2 (3, 65536): cluster {k1:.4f}/{k2:.4f} ms, one CTA per row "
         f"{o1:.4f}/{o2:.4f} ms (turns K O O K), plain {wp:.4f} ms, bound {wb:.7f} ms ({wby})")
-
-
-def sampling_work(cfg, weights: torch.Tensor) -> tuple[int, int]:
-    """(bytes, int32 operations) of one round's sampling weights
-    ``weights`` (B, L, m_max), drawn with no row mask: the output written
-    once (and 12 bytes of key and step); THREEFRY_OPS per threefry block
-    that any implementation of these draws must run -- per record, a
-    level's Bernoulli when frac > 0 and its M scores when the record keeps
-    neither none nor all of them (0 < l_b < M, read from ``weights``), and
-    1 + 3L blocks for the keys.  The selection's compares are not counted:
-    how many there are depends on the implementation (a sorting network
-    needs fewer than one per pair of combinations)."""
-    parts = proj.level_sample_parts(cfg.d, cfg.s, cfg.ratio)
-    B, L, m_max = weights.shape
-    kept = weights.sum(dim=2)
-    blocks = 1 + 3 * L
-    for idx, (m, lo, frac) in enumerate(parts):
-        if lo >= m and frac == 0.0:
-            continue
-        blocks += B * (frac > 0.0) + m * int(((kept[:, idx] > 0) & (kept[:, idx] < m)).sum())
-    return B * L * m_max * 4 + 12, THREEFRY_OPS * blocks
 
 
 # ---------------------------------------------------------------------------
@@ -3333,6 +3303,13 @@ def phase_train(device, smi: str) -> dict:
         f"{losses[0]:.4f} at step 0, {final:.4f} at step {TRAIN_STEPS} (per step {losses}); "
         f"monitor update {float(np.median(monitor_s)) * 1e3:.1f} ms of a step; counters equal "
         f"the torch_ref twin's; {smi}")
+    meta_state, meta_mparams = dryrun.meta_train_state(cfg, dims, opt, monitor_cfg=TRAIN_MONITOR)
+    meta_step = train.make_train_step(cfg, dims, opt, monitor_cfg=TRAIN_MONITOR,
+                                      monitor_params=meta_mparams, remat="full",
+                                      compute_dtype=torch.bfloat16)
+    check_roofline("train", cfg, TRAIN_TOKENS, True, step, (state, batch), meta_step,
+                   (meta_state, meta_like(batch)), step_ms, peak_gate=True)
+    del meta_state, meta_step
     log_profile("one more train step", *profiled(lambda: step(state, batch), host_ops=False)[:3])
     del state, step, opt
     torch.cuda.empty_cache()
@@ -3483,6 +3460,13 @@ def phase_train_long(device, smi: str) -> dict:
         require(equal(state.monitor.counters[0], counters) and equal(state.monitor.n[0], n),
                 "train_long: the monitor's counters differ from the torch_ref twin's")
     step_ms = float(np.median(seconds[1:])) * 1e3
+    meta_state, meta_mparams = dryrun.meta_train_state(cfg, dims, opt, monitor_cfg=TRAIN_MONITOR)
+    meta_step = train.make_train_step(cfg, dims, opt, monitor_cfg=TRAIN_MONITOR,
+                                      monitor_params=meta_mparams, remat="full",
+                                      compute_dtype=torch.bfloat16)
+    check_roofline("train_long", cfg, TRAIN_LONG_TOKENS, True, step, (state, batch), meta_step,
+                   (meta_state, meta_like(batch)), step_ms, peak_gate=True)
+    del meta_state, meta_step
     bwd_ms = dict.fromkeys(BWD_KERNEL_NAMES, 0.0)
     p_seconds, busy, top, _, _ = profiled(lambda: step(state, batch), host_ops=False,
                                           kernel_sums=bwd_ms)
@@ -4259,12 +4243,201 @@ def phase_train_tp(smi: str) -> dict[str, int]:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the roofline: one step of a path counted on the card and on meta
+# ---------------------------------------------------------------------------
+
+# The meta count's peak over the card's max_memory_allocated for the step.
+ROOFLINE_PEAK_RANGE = (0.8, 1.25)
+ROOFLINE: dict = {}      # path -> its counts, bound and share
+# The dry run's cells on the (data=16, model=16) mesh.
+DRYRUN_ARCH = "qwen2.5-3b"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT_S = 300
+
+
+def count_on(device_type: str, fn, args):
+    """(``roofline.Cost``, result) of ``fn(*args)`` counted, its arguments
+    and memory those on ``device_type``."""
+    with RL.count_cost(memory_device=device_type) as counter:
+        counter.arguments(args)
+        out = fn(*args)
+        counter.outputs(out)
+        if device_type == "cuda":
+            torch.cuda.synchronize()
+    return counter.cost, out
+
+
+def meta_like(tree):
+    """``tree`` with every tensor replaced by an empty one of its shape and
+    dtype on ``meta``."""
+    return ptree.tree_map(lambda x: torch.empty_like(x, device="meta")
+                          if isinstance(x, torch.Tensor) else x, tree)
+
+
+def check_roofline(path: str, cfg, tokens: int, train_: bool, card_fn, card_args,
+                   meta_fn, meta_args, measured_ms: float, *, peak_gate: bool = False):
+    """Count one call of a path on the card and its twin on ``meta``.
+    Gates: FLOPs by dtype, HBM bytes, kernel-op work and collectives equal
+    as integers; the measured ``measured_ms`` at least the roofline bound
+    max(compute, memory) of the count; with ``peak_gate`` the meta count's
+    peak within ROOFLINE_PEAK_RANGE of the card's max_memory_allocated for
+    the call.  Returns the meta call's result."""
+    t0 = time.perf_counter()
+    if peak_gate:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    card, out = count_on("cuda", card_fn, card_args)
+    card_peak = torch.cuda.max_memory_allocated()
+    del out
+    meta, meta_out = count_on("meta", meta_fn, meta_args)
+    keys = ("flops_by_dtype", "hbm_bytes", "kernel_ops", "collectives")
+    differ = [k for k in keys if getattr(card, k) != getattr(meta, k)]
+    if differ:
+        ops = sorted(set(card.hbm_by_op) | set(meta.hbm_by_op))
+        log(f"roofline {path}: card and meta counts differ in {differ}: flops "
+            f"{card.flops_by_dtype} / {meta.flops_by_dtype}, bytes by op (card, meta) "
+            + ", ".join(f"{op} {card.hbm_by_op.get(op, 0)} {meta.hbm_by_op.get(op, 0)}"
+                        for op in ops if card.hbm_by_op.get(op) != meta.hbm_by_op.get(op)))
+    require(not differ, f"roofline {path}: the card's and meta's counts differ in {differ}")
+    rl = RL.analyze_cost(meta, model_flops_per_device=RL.model_flops(cfg, tokens,
+                                                                     train=train_))
+    bound_ms_ = rl.bound_s * 1e3
+    share = bound_ms_ / measured_ms
+    require(share <= 1.0, f"roofline {path}: bound {bound_ms_:.1f} ms above the measured "
+                          f"{measured_ms:.1f} ms: the count is wrong")
+    row = {"flops_by_dtype": meta.flops_by_dtype, "hbm_bytes": meta.hbm_bytes,
+           "compute_ms": rl.compute_s * 1e3, "memory_ms": rl.memory_s * 1e3,
+           "bound_ms": bound_ms_, "measured_ms": measured_ms, "share": share,
+           "dominant": rl.dominant, "useful_ratio": rl.useful_ratio,
+           "kernel_ops": meta.kernel_ops, "meta_peak_bytes": meta.peak_bytes,
+           "card_peak_bytes": card_peak}
+    if peak_gate:
+        ratio = meta.peak_bytes / card_peak
+        lo, hi = ROOFLINE_PEAK_RANGE
+        require(lo <= ratio <= hi, f"roofline {path}: meta peak {meta.peak_bytes} is {ratio:.3f} "
+                                   f"of the card's {card_peak} (gate [{lo}, {hi}])")
+        row["peak_ratio"] = ratio
+    row["count_s"] = time.perf_counter() - t0
+    ROOFLINE[path] = row
+    log(f"roofline {path}: card and meta counts equal (flops {meta.flops_by_dtype}, "
+        f"{meta.hbm_bytes} HBM bytes, kernel ops {meta.kernel_ops}); compute "
+        f"{rl.compute_s * 1e3:.3f} ms, memory {rl.memory_s * 1e3:.3f} ms, dominant "
+        f"{rl.dominant}, useful_ratio {rl.useful_ratio:.4f}; bound {bound_ms_:.3f} ms against "
+        f"measured {measured_ms:.3f} ms: share {share:.4f}; peak meta {meta.peak_bytes / 1e9:.3f}"
+        f" GB, card {card_peak / 1e9:.3f} GB"
+        + (f" (ratio {row['peak_ratio']:.4f}, gate {ROOFLINE_PEAK_RANGE})" if peak_gate else "")
+        + f"; {row['count_s']:.1f} s to count both")
+    return meta_out
+
+
+def phase_roofline_report(smi: str) -> None:
+    """Every counted path's share of its roofline, in one line each and
+    one JSON line."""
+    for path, row in ROOFLINE.items():
+        log(f"roofline share {path}: {row['share']:.4f} (bound {row['bound_ms']:.3f} ms, "
+            f"measured {row['measured_ms']:.3f} ms, dominant {row['dominant']}, useful_ratio "
+            f"{row['useful_ratio']:.4f}); {smi}")
+    log("roofline " + json.dumps(ROOFLINE))
+    log(f"roofline phase: {sum(row['count_s'] for row in ROOFLINE.values()):.1f} s of counting "
+        f"inside the train, train_long and serve phases")
+
+
+def phase_dryrun(smi: str) -> None:
+    """``python -m repro_torch.launch.dryrun`` for DRYRUN_ARCH's cells on
+    the 256-rank mesh, in a process of its own (the fake group needs a
+    fresh one); each cell's report line, and rank 0's argument bytes
+    against the local blocks' (``dryrun.expected_argument_bytes``)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH")
+                                   else []))}
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                               DRYRUN_ARCH, "--out", tmp], capture_output=True, text=True,
+                              timeout=DRYRUN_TIMEOUT_S, env=env, cwd=ROOT)
+        for line in proc.stdout.splitlines():
+            if line.strip():
+                log(f"dryrun: {line}")
+        require(proc.returncode == 0, f"dryrun: exit {proc.returncode}: {proc.stderr[-2000:]}")
+        for shape in DRYRUN_SHAPES:
+            with open(os.path.join(tmp, f"{DRYRUN_ARCH}__{shape}__1pod.json")) as f:
+                rep = json.load(f)
+            want = dryrun.expected_argument_bytes(DRYRUN_ARCH, shape)
+            got = rep["memory"]["argument_bytes"]
+            require(got == want, f"dryrun {shape}: rank 0's argument bytes {got}, its local "
+                                 f"blocks' {want}")
+            rl = rep["roofline"]
+            log(f"dryrun {DRYRUN_ARCH}/{shape} on {rep['mesh']}: per rank flops "
+                f"{rl['flops_by_dtype']}, HBM {rl['hbm_bytes']} B, wire {rl['wire_bytes']} B, "
+                f"compute {rl['compute_s']:.4f} s, memory {rl['memory_s']:.4f} s, collective "
+                f"{rl['collective_s']:.4f} s, dominant {rl['dominant']}, peak "
+                f"{rep['memory']['peak_bytes'] / 1e9:.2f} GB; argument bytes {got} equal the "
+                f"local blocks'; traced in {rep['lower_s']} s")
+    log(f"dryrun phase: {time.perf_counter() - t0:.1f} s (the card's host; {smi})")
+
+
+def run_example(module, argv) -> tuple:
+    """(result, printed text) of an example twin's ``main(argv)``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = module.main(argv)
+    return out, buf.getvalue()
+
+
+def phase_examples(device, smi: str) -> None:
+    """``examples/quickstart_torch.py`` and ``examples/serve_decode_torch.py``
+    on the card, each with its promised lines: the quickstart's g_s table
+    equal to the same stream through the plain versions on the card; the
+    served requests' tokens, the duplicates' equal, and the request
+    monitor's line."""
+    import examples.quickstart_torch as quickstart
+    import examples.serve_decode_torch as serve_decode
+    t0 = time.perf_counter()
+    launched = {name: getattr(module, attr) for name, (module, attr, _) in COUNTS.items()}
+    rows, text = run_example(quickstart, [])
+    require(f"device: {device}" in text and "sketch memory: 48 KiB" in text
+            and "estimate g_s" in text, f"quickstart_torch: promised lines missing:\n{text}")
+    records = shingle_records(20_000, d=quickstart.D, seed=1, group=6,
+                              dup_profile=quickstart.DUP_PROFILE)
+    cfg = sjpc.SJPCConfig(d=quickstart.D, s=quickstart.S_MIN, ratio=0.5, width=1024, depth=3)
+    with oracle_calls():
+        params, state = sjpc.init(cfg, device=device)
+        for i in range(0, len(records), 2_000):
+            state = sjpc.update(cfg, params, state, records[i:i + 2_000],
+                                prng.fold_in(prng.PRNGKey(0), i), impl=registry.TORCH_REF)
+    est = sjpc.estimate(cfg, state)
+    plain = [float(est.x[s - cfg.s:].sum() + est.n) for s in range(cfg.s, cfg.d + 1)]
+    require(len(rows) == cfg.d - cfg.s + 1 and [r[1] for r in rows] == plain
+            and all(math.isfinite(r[3]) for r in rows),
+            f"quickstart_torch: table {rows}, the plain versions' estimates {plain}")
+    q_s = time.perf_counter() - t0
+    out, text = run_example(serve_decode, [])
+    tokens = out["tokens"]
+    require(tokens.shape == (8, 8) and "served 8 requests" in text
+            and "SJPC request monitor" in text and all(f"req {i}:" in text for i in range(8)),
+            f"serve_decode_torch: promised lines missing:\n{text}")
+    require(np.array_equal(tokens[0], tokens[3]) and np.array_equal(tokens[0], tokens[5]),
+            "serve_decode_torch: duplicate requests served differently")
+    require(math.isfinite(out["dup_pairs"]), "serve_decode_torch: monitor estimate")
+    launches = {name: getattr(module, attr) - launched[name]
+                for name, (module, attr, _) in COUNTS.items()}
+    require(all(launches[name] > 0 for name in TRAIN_KERNELS),
+            f"examples: the monitor kernels did not launch: {launches}")
+    log(f"examples: quickstart_torch on the card in {q_s:.1f} s, its table {rows} equal to "
+        f"the plain versions' on the card; serve_decode_torch in "
+        f"{time.perf_counter() - t0 - q_s:.1f} s, tokens row 0 {tokens[0].tolist()}, duplicates"
+        f" 0/3/5 equal, ~{out['dup_pairs']:.1f} duplicate prompt pairs (true: 3); launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {smi}")
+    log(f"examples phase: {time.perf_counter() - t0:.1f} s")
+
+
+
 def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
     """Kernel, plain-version and library times at the main path's shapes,
     with the bound of each; ``by_path`` holds each path's launches."""
     _, state = sjpc.init(cfg, device=device)
     iargs, B, _ = sjpc.fused_ingest_args(cfg, params, state, records[:BATCH])
-    _, values, masks, ids, _, _, _, wpad = iargs
     batch = records[:BATCH]
     dev_batch = as_field_tensor(batch, device)
     update_ms, args_ms, dev_update_ms = wall_ms(
@@ -4280,33 +4453,20 @@ def phase_numbers(device, cfg, params, records, tenants, by_path, est_out):
         f"{dev_update_ms:.3f} ms with the batch already on the card, of which the card works "
         f"{busy_ms:.4f} ms (device time of all its launches, L2 flushed) and the host "
         f"{host_ms:.4f} ms per call: device idle share {1 - busy_ms / dev_update_ms:.3f}")
-    L, t, w = state.counters.shape
-    ks = [cfg.level_k(i) for i in range(L)]
-    live = (wpad != 0).sum(dim=(0, 2)).tolist()
-    ingest_ops = sum(n_live * (2 * k + 12 * t) for n_live, k in zip(live, ks))
-    # the bytes of the function, field data at its uint32 width: the
-    # records, each level's C(d, k) live combinations of the tables and of
-    # the weights (the padded slots carry weight 0 by the op's contract and
-    # are never read), the coefficients, the counters read and written
-    n_live = sum(proj.padded_lattice(cfg.d, cfg.s).nums)
-    ingest_bytes = ((values.numel() + n_live * (cfg.d + 1) + 2
-                     + 2 * params.bucket_coeffs.numel()) * FIELD_BYTES
-                    + B * n_live * 4 + 2 * state.counters.numel() * 4)
+    # kernels.work's formulas at this data: field data at its uint32
+    # width, each level's C(d, k) live combinations of the tables and of
+    # the weights (the padded slots carry weight 0 and are never read)
+    _, ingest_bytes, ingest_ops = with_work("fused_ingest", iargs)
     sargs = (prng.PRNGKey(cfg.seed ^ 0xC0FFEE).to(device), state.step, None, B, cfg.d, cfg.s,
              cfg.ratio)
-    sample_bytes, sample_ops = sampling_work(cfg, ref.sample_weights_ref(*sargs))
+    _, sample_bytes, sample_ops = with_work("sample_weights", sargs)
 
     level0 = proj.lattice(cfg.d, cfg.s)[0]
     fmasks = torch.from_numpy(level0.masks.astype(np.int64)).to(device)
     fids = torch.from_numpy(level0.ids.astype(np.int64)).to(device)
     fargs = (dev_batch, fmasks, fids, params.fp_bases)
-    fp_ops = 2 * level0.k * B * level0.num
-    fp_bytes = (dev_batch.numel() + fmasks.numel() + fids.numel() + 2
-                + 2 * B * level0.num) * FIELD_BYTES
-
-    q_rows = tenants.shape[0] * L * t
-    q_ops = q_rows * w
-    q_bytes = tenants.numel() * 4 + q_rows * 4
+    _, fp_bytes, fp_ops = with_work("fingerprint", fargs)
+    _, q_bytes, q_ops = with_work("fused_query", (tenants, tenants))
     tenants_f32 = tenants.float()
     pairs, update, moments = estimator_kernel_args(device, cfg, params, est_out)
     moments_f32 = moments[0][0].float()
@@ -4528,6 +4688,9 @@ def main() -> int:
     by_path["serve_mesh"] = phase_serve_mesh(device, smi)
     torch.cuda.empty_cache()
     by_path["train_tp"] = phase_train_tp(smi)
+    phase_roofline_report(smi)
+    phase_dryrun(smi)
+    phase_examples(device, smi)
 
     rows = phase_numbers(device, cfg, params, records, tenants, by_path, est_out)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -8,7 +8,8 @@ JAX package plain jnp code that XLA compiles).  Every op registers two
 implementations: ``torch_ref`` (the plain version of :mod:`.ref`, any
 device) and ``cuda_sm90`` (the hand-written kernel, CUDA tensors only).  A
 call goes by the device of its tensors -- CPU tensors run the plain
-version, CUDA tensors the kernel -- unless the caller names ``impl=`` for
+version, CUDA tensors the kernel, ``meta`` tensors the op's shape function
+(``work.SHAPES``) -- unless the caller names ``impl=`` for
 that call.  Every call counts
 ``kernel_dispatch_total{kernel, impl}`` in the default metrics registry.
 
@@ -34,6 +35,7 @@ from . import ref
 from . import sample_weights as _sample_weights
 from . import sketch_moments as _sketch_moments
 from . import sketch_update as _sketch_update
+from . import work
 from .registry import kernel_registry
 
 _REG = kernel_registry()
@@ -58,12 +60,15 @@ def _int32(x, device) -> torch.Tensor:
 
 
 def _dispatch(op: str, device: torch.device, impl: str | None):
-    """Select one call's implementation and count it."""
+    """Select one call's implementation and count it; under
+    ``launch.roofline.count_cost`` the call is costed by the op's own
+    formula (``work.WORK``), not by the operations the implementation
+    issues."""
     name, fn = _REG.select(op, device, impl)
     metrics = default_registry()
     if metrics.enabled:
         metrics.inc("kernel_dispatch_total", kernel=op, impl=name)
-    return fn
+    return work.observe(op, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +256,7 @@ def make_sjpc_update_fn(*, impl=None):
 
 
 # ---------------------------------------------------------------------------
-# registrations: nine ops, each a kernel and its plain version
+# registrations: nine ops, each a kernel, its plain version and its shapes
 # ---------------------------------------------------------------------------
 
 def _register_all(reg=_REG) -> None:
@@ -266,7 +271,7 @@ def _register_all(reg=_REG) -> None:
             ("sample_weights", ref.sample_weights_ref, _sample_weights.sample_weights),
             ("sketch_moments", ref.sketch_moments_ref, _sketch_moments.sketch_moments),
             ("sketch_update", ref.sketch_update_ref, _sketch_update.sketch_update)):
-        reg.register(op, kernel=kernel, oracle=oracle)
+        reg.register(op, kernel=kernel, oracle=oracle, shape=work.SHAPES[op])
 
 
 _register_all()

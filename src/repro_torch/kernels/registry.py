@@ -10,7 +10,9 @@ Every op registers one :class:`KernelOp` with two implementations:
     registry holds every kernel against it.
 
 :meth:`KernelRegistry.select` decides from the device of the call's
-tensors: CUDA tensors run the kernel, CPU tensors the plain version.  A
+tensors: CUDA tensors run the kernel, CPU tensors the plain version, and
+``meta`` tensors the op's shape function (``work.SHAPES``: the outputs'
+shapes and dtypes, nothing computed), which the dry run traces with.  A
 caller may name ``impl=`` for one call; the oracle calls that hold a kernel
 against its plain version on the card name ``torch_ref``.  Nothing else
 changes the choice.  A kernel that cannot build or launch raises; it never
@@ -26,6 +28,7 @@ import torch
 TORCH_REF = "torch_ref"
 CUDA_SM90 = "cuda_sm90"
 IMPLS = (TORCH_REF, CUDA_SM90)
+META = "meta"       # the shape function, meta tensors only; not an implementation
 
 
 class RegistryError(ValueError):
@@ -39,12 +42,15 @@ class KernelOp:
     name: str
     kernel: Callable    # cuda_sm90
     oracle: Callable    # torch_ref, in kernels/ref.py
+    shape: Callable | None = None   # meta
 
     def impl(self, impl: str) -> Callable:
         if impl == CUDA_SM90:
             return self.kernel
         if impl == TORCH_REF:
             return self.oracle
+        if impl == META and self.shape is not None:
+            return self.shape
         raise RegistryError(f"{self.name!r} has no implementation named {impl!r} "
                             f"(registered: {list(IMPLS)})")
 
@@ -56,8 +62,10 @@ class KernelRegistry:
     def __init__(self):
         self._ops: dict[str, KernelOp] = {}
 
-    def register(self, name: str, *, kernel: Callable, oracle: Callable) -> KernelOp:
-        """Register one op; the oracle is mandatory."""
+    def register(self, name: str, *, kernel: Callable, oracle: Callable,
+                 shape: Callable | None = None) -> KernelOp:
+        """Register one op; the oracle is mandatory, the shape function
+        (the ``meta`` tier) optional."""
         if not callable(oracle):
             raise RegistryError(f"{name}: every registered kernel must point at its "
                                 f"oracle in kernels/ref.py (got {oracle!r})")
@@ -65,7 +73,7 @@ class KernelRegistry:
             raise RegistryError(f"{name}: kernel must be callable")
         if name in self._ops:
             raise RegistryError(f"{name}: already registered")
-        self._ops[name] = KernelOp(name, kernel, oracle)
+        self._ops[name] = KernelOp(name, kernel, oracle, shape)
         return self._ops[name]
 
     def ops(self) -> tuple[str, ...]:
@@ -81,9 +89,10 @@ class KernelRegistry:
                impl: str | None = None) -> tuple[str, Callable]:
         """(implementation name, function) for a call on ``device``:
         ``impl`` when the caller names one, else the kernel for CUDA
-        tensors and the plain version for the rest."""
+        tensors, the shape function for ``meta`` tensors and the plain
+        version for the rest."""
         if impl is None:
-            impl = CUDA_SM90 if device.type == "cuda" else TORCH_REF
+            impl = {"cuda": CUDA_SM90, "meta": META}.get(device.type, TORCH_REF)
         return impl, self.get(name).impl(impl)
 
 

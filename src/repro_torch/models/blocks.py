@@ -70,11 +70,13 @@ def _ffn(params, x, dims: Dims, aux, dp=None, tp=None):
 
 def apply_layer(params, x, dims: Dims, spec, *, positions, causal=True, enc_mem=None,
                 aux=None, ssm_chunk: int = ssm.DEFAULT_CHUNK, attn_chunk: int = 2048,
-                probs_dtype=torch.float32, impl: str | None = None, dp=None, tp=None):
+                probs_dtype=torch.float32, impl: str | None = None, dp=None, tp=None,
+                final_state: bool = True):
     """Full-sequence layer (train / prefill).  Returns (x, cache_out, aux).
 
     cache_out carries whatever decode needs: this pass's attention K/V,
-    the mamba final states, the cross-attention memory K/V.
+    the mamba final states (the SSM state None without ``final_state``:
+    a training forward has no use for it), the cross-attention memory K/V.
     ``probs_dtype`` is the attention probabilities' type (the softmax
     itself is float32); ``impl`` names the flash-attention op's
     implementation (None: by device); ``dp`` is a data-parallel step's
@@ -91,7 +93,8 @@ def apply_layer(params, x, dims: Dims, spec, *, positions, causal=True, enc_mem=
                                            impl=impl, tp=tp)
         cache_out["k"], cache_out["v"] = k, v
     else:
-        out, states = ssm.mamba_block(params["mamba"], h, dims, chunk=ssm_chunk, tp=tp)
+        out, states = ssm.mamba_block(params["mamba"], h, dims, chunk=ssm_chunk, tp=tp,
+                                      final_state=final_state)
         cache_out["mamba"] = states
     x = x + out
     if "cross" in params:

@@ -267,7 +267,8 @@ def _run_groups(params, cfg, dims, x, positions, *, causal, enc_mem=None, remat=
                 x, cache_out, aux = blocks.apply_layer(
                     pslice[i], x, dims, spec, positions=positions, causal=causal,
                     enc_mem=enc_mem, aux=aux, ssm_chunk=ssm_chunk, attn_chunk=attn_chunk,
-                    probs_dtype=probs_dtype, impl=impl, dp=dp, tp=tp)
+                    probs_dtype=probs_dtype, impl=impl, dp=dp, tp=tp,
+                    final_state=collect_cache)
                 if tp is not None:
                     tp.check_replicated(x, f"group {_gi} layer {i}")
                 outs.append(cache_out)

@@ -107,11 +107,15 @@ def _conv_split(params, x, bm, cm, conv_state=None):
     return xs, bm, cm, {"x": new_x, "bc": new_bc}
 
 
-def ssd_chunked(x, a, dt, bm, cm, *, chunk: int = DEFAULT_CHUNK, h0=None):
+def ssd_chunked(x, a, dt, bm, cm, *, chunk: int = DEFAULT_CHUNK, h0=None,
+                final_state: bool = True):
     """Chunked SSD.  x (B,S,H,P), a/dt (B,S,H), bm/cm (B,S,G,N).
 
     Returns (y (B,S,H,P) fp32, h_final (B,H,N,P) fp32).  S must be a
-    multiple of ``min(chunk, S)``.
+    multiple of ``min(chunk, S)``.  Without ``final_state`` the last
+    chunk's state update is skipped and h_final is None: a training
+    forward discards the state, and XLA drops that update from the JAX
+    package's compiled forward as dead code.
     """
     b, s, h, p = x.shape
     g, n = bm.shape[2], bm.shape[3]
@@ -147,13 +151,16 @@ def ssd_chunked(x, a, dt, bm, cm, *, chunk: int = DEFAULT_CHUNK, h0=None):
         # inter-chunk: y_i += exp(cum_i) * C_i . h_in
         ckh = _group_to_heads(ck, h)                             # (B,L,H,N)
         y = y + torch.exp(cum)[..., None] * torch.einsum("bihn,bhnp->bihp", ckh, hstate)
+        ys.append(y)
+        if c == nc - 1 and not final_state:
+            hstate = None
+            break
         # state update
         last = cum[:, -1:, :]                                    # (B,1,H)
         wstate = torch.exp(last - cum)                           # (B,L,H)
         bkh = _group_to_heads(bk, h)                             # (B,L,H,N)
         s_new = torch.einsum("bjh,bjhn,bjhp->bhnp", wstate, bkh, xk)
         hstate = torch.exp(last[:, 0, :])[:, :, None, None] * hstate + s_new
-        ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, s, h, p)
     return y, hstate
 
@@ -184,9 +191,10 @@ def _rank_groups(bm, cm, dims: Dims, tp):
 
 
 def mamba_block(params, u, dims: Dims, *, chunk: int = DEFAULT_CHUNK, conv_state=None,
-                ssm_state=None, tp=None):
+                ssm_state=None, tp=None, final_state: bool = True):
     """Full-sequence mixer.  u (B, S, d) -> (out (B,S,d), new states).
-    ``tp``: the rank's heads (module docstring)."""
+    ``tp``: the rank's heads (module docstring); without ``final_state``
+    the SSM state is not computed (None), as :func:`ssd_chunked`."""
     cfg = dims.cfg
     if tp is not None:
         u = tp.copy(u)
@@ -195,7 +203,8 @@ def mamba_block(params, u, dims: Dims, *, chunk: int = DEFAULT_CHUNK, conv_state
     bm, cm = _rank_groups(bm, cm, dims, tp)
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])           # (B,S,H)
     a = -torch.exp(params["A_log"]) * dt                                 # (B,S,H)
-    y, h_final = ssd_chunked(x, a, dt, bm, cm, chunk=chunk, h0=ssm_state)
+    y, h_final = ssd_chunked(x, a, dt, bm, cm, chunk=chunk, h0=ssm_state,
+                             final_state=final_state)
     y = y + params["D"][:, None] * x.to(torch.float32)
     y = _gated_norm(params["norm"], y, z, cfg.rms_eps)
     out = torch.einsum("bshp,hpd->bsd", y.to(u.dtype), params["wo"])
