@@ -1,0 +1,8 @@
+"""device_idle.scan: the share of the traced segment's host-clock window in which no device
+operation ran, in percent."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
