@@ -25,6 +25,17 @@ batched queries the ``fused_query`` kernel; on the CPU the same functions
 run the kernels' plain versions.  Under the default keys the counters
 equal the JAX package's bit for bit: the parameters come from the same
 numpy draws and the sampling replays ``jax.random`` (:mod:`.prng`).
+
+:func:`update_fused`, :func:`estimate_batch` and :func:`estimate_join_batch`
+open spans of :func:`~repro_torch.obs.trace.path_tracer`, live only while a
+``torch.profiler`` records or an operator switches it on:
+``sjpc.update_fused`` (attribute ``rows``) with the stages ``prepare``,
+``draws`` and ``ingest``; each estimate with ``wait``, ``query``,
+``recursion``, ``to_host`` and ``bounds``.  ``wait`` blocks, while live,
+on the counters' stream, which the estimate's first synchronous copy (a
+float32 constant of the recursion, then the copies to the host) would
+block on anyway: the time the estimate waits for the card's queued work
+is then apart from the host's own.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ import torch.distributed as dist
 
 from .. import platform
 from ..kernels import ops
+from ..obs.trace import NULL_SPAN, path_tracer
 from . import prng
 from . import projections as proj
 from . import sketch as sk
@@ -199,13 +211,17 @@ def update(cfg: SJPCConfig, params: SJPCParams, state: SJPCState, values,
 
 def fused_ingest_args(cfg: SJPCConfig, params: SJPCParams, state: SJPCState, values,
                       key: torch.Tensor | None = None, row_mask=None,
-                      impl: str | None = None):
+                      impl: str | None = None, *, span=NULL_SPAN):
     """The ``fused_ingest`` arguments of one round over the padded lattice,
     with the batch size and the row mask: ``(args, B, row_mask)``.  The
     weights come from the ``sample_weights`` op (``impl`` names its
-    implementation)."""
+    implementation).  ``span`` is the caller's path span, whose ``prepare``
+    and ``draws`` stages run here."""
+    span.stage("prepare")
     values, B, key, step, row_mask = _prepare(cfg, state, values, key, row_mask)
     _, (masks, ids) = _lattice_tensors(cfg.d, cfg.s, state.counters.device)
+    span.set(rows=B)
+    span.stage("draws")
     wpad = ops.sample_weights(key, B, cfg.d, cfg.s, cfg.ratio, step=step, row_mask=row_mask,
                               impl=impl)
     args = (state.counters, values, masks, ids, params.fp_bases, params.bucket_coeffs,
@@ -221,8 +237,11 @@ def update_fused(cfg: SJPCConfig, params: SJPCParams, state: SJPCState, values,
     implementation of the ``sample_weights`` and ``fused_ingest`` ops (None
     resolves from the device).  With the default key and the records on
     the card, nothing is read back to the host."""
-    args, B, row_mask = fused_ingest_args(cfg, params, state, values, key, row_mask, impl)
-    return advance(state, ops.fused_ingest(*args, impl=impl), B, row_mask)
+    with path_tracer().span("sjpc.update_fused") as span:
+        args, B, row_mask = fused_ingest_args(cfg, params, state, values, key, row_mask, impl,
+                                              span=span)
+        span.stage("ingest")
+        return advance(state, ops.fused_ingest(*args, impl=impl), B, row_mask)
 
 
 def merge(a: SJPCState, b: SJPCState) -> SJPCState:
@@ -533,12 +552,20 @@ def estimate_batch(cfg: SJPCConfig, counters, n, *, clamp: bool = True,
     (default: the CUDA card).  ``impl`` names the ``fused_query``
     implementation (None resolves from the device).
     """
-    counters = _stack_counters(counters, device)
-    n = torch.as_tensor(n, dtype=torch.float32).to(counters.device).reshape(counters.shape[0])
-    moments = ops.fused_query(counters, impl=impl)
-    y, x, g = estimate_from_moments(cfg, moments, n, clamp=clamp, join=False)
-    y, x, g, n = _host(y, x, g, n)
-    on, off = _batch_bounds(cfg, n, g)
+    with path_tracer().span("sjpc.estimate_batch") as span:
+        counters = _stack_counters(counters, device)
+        span.stage("wait")
+        span.wait(counters)
+        span.stage("query")
+        n = torch.as_tensor(n, dtype=torch.float32).to(counters.device).reshape(
+            counters.shape[0])
+        moments = ops.fused_query(counters, impl=impl)
+        span.stage("recursion")
+        y, x, g = estimate_from_moments(cfg, moments, n, clamp=clamp, join=False)
+        span.stage("to_host")
+        y, x, g, n = _host(y, x, g, n)
+        span.stage("bounds")
+        on, off = _batch_bounds(cfg, n, g)
     return SJPCBatchEstimate(x=x, g=g, y=y, n=n, stderr=on, stderr_offline=off)
 
 
@@ -548,15 +575,22 @@ def estimate_join_batch(cfg: SJPCConfig, counters_a, counters_b, n_a, n_b, *,
     """Join sizes for N stacked sketch PAIRS (identical hash params per
     pair), all thresholds at once.  Error bars: the self-join bound at
     n = max(n_a, n_b) with max(estimate, 1) plugged in."""
-    counters_a = _stack_counters(counters_a, device)
-    counters_b = _stack_counters(counters_b, counters_a.device)
-    N = counters_a.shape[0]
-    n_a = torch.as_tensor(n_a, dtype=torch.float32).to(counters_a.device).reshape(N)
-    n_b = torch.as_tensor(n_b, dtype=torch.float32).to(counters_a.device).reshape(N)
-    moments = ops.fused_query(counters_a, counters_b, impl=impl)
-    y, x, g = estimate_from_moments(cfg, moments, n_a, clamp=clamp, join=True)
-    y, x, g, n_a, n_b = _host(y, x, g, n_a, n_b)
-    on, off = _batch_bounds(cfg, np.maximum(n_a, n_b), np.maximum(g, 1.0))
+    with path_tracer().span("sjpc.estimate_join_batch") as span:
+        counters_a = _stack_counters(counters_a, device)
+        counters_b = _stack_counters(counters_b, counters_a.device)
+        span.stage("wait")
+        span.wait(counters_a, counters_b)
+        span.stage("query")
+        N = counters_a.shape[0]
+        n_a = torch.as_tensor(n_a, dtype=torch.float32).to(counters_a.device).reshape(N)
+        n_b = torch.as_tensor(n_b, dtype=torch.float32).to(counters_a.device).reshape(N)
+        moments = ops.fused_query(counters_a, counters_b, impl=impl)
+        span.stage("recursion")
+        y, x, g = estimate_from_moments(cfg, moments, n_a, clamp=clamp, join=True)
+        span.stage("to_host")
+        y, x, g, n_a, n_b = _host(y, x, g, n_a, n_b)
+        span.stage("bounds")
+        on, off = _batch_bounds(cfg, np.maximum(n_a, n_b), np.maximum(g, 1.0))
     return SJPCBatchEstimate(x=x, g=g, y=y, n=np.stack([n_a, n_b], axis=1),
                              stderr=on, stderr_offline=off)
 

@@ -16,6 +16,16 @@ Three parts, composable and individually injectable:
 :class:`Observability` bundles a registry + tracer (+ optional auditor)
 for the service layers; ``Observability.disabled()`` is the shared no-op
 bundle.
+
+The kernel path (``core/sjpc.py``'s ``update_fused`` and batched
+estimates) has a tracer of its own, ``trace.path_tracer()``, kept out of
+``__all__`` (the export list matches the JAX package's): off by default,
+armed while a ``torch.profiler`` records, or switched on by an operator
+(``path_tracer().switch(True, sink=...)``, JSON-lines events).  Live, its
+spans and their stages observe their host seconds into
+``sjpc_span_seconds{span=<path>}`` of the default registry (a few
+microseconds a span); off, a public call pays one profiler check and a
+few no-op calls.
 """
 from __future__ import annotations
 

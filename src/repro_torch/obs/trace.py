@@ -30,6 +30,24 @@ histogram when given one (``histogram=``), which is how every
 
 Disabled tracers hand out one shared no-op span: no allocation, no clock
 reads.
+
+:func:`path_tracer` is the one process-global tracer of the kernel path
+(``core/sjpc.py``'s ``update_fused`` and batched estimates).  It is off
+unless something asks for it: while a ``torch.profiler.profile`` records
+(``torch.autograd._profiler_enabled()``), or while an operator switches
+it on (``path_tracer().switch(True, sink=<path or file>)``, the sink
+optional and JSON-lines).  A public call opens one root span, which makes
+the call's one liveness check; its stages (:meth:`PathSpan.stage`) check
+nothing, and under the shared null span they do nothing.  A live span
+observes its host seconds into the histogram family
+``sjpc_span_seconds{span=<path>}`` of :func:`~.metrics.default_registry`;
+while a profiler records (and only then) its body runs inside a profiler
+range named ``<path>`` (the C++ ``_RecordFunctionFast`` range, a
+``cpu_op`` in the trace); while switched on, it emits its event, whose
+``ts`` is the Unix clock, as the profiler's Chrome trace stamps are.  Off,
+a call pays one profiler check, one no-op ``with`` block and a no-op call
+a stage; live, a few microseconds a span, so the operator switch is for
+diagnosis, not steady serving.
 """
 from __future__ import annotations
 
@@ -40,9 +58,10 @@ import time
 
 import torch
 
-from .metrics import MetricsRegistry
+from .metrics import MetricsRegistry, default_registry
 
 _EVENT_RING = 1024           # in-memory events kept per tracer
+PATH_HISTOGRAM = "sjpc_span_seconds"
 
 
 def _cuda_devices(tree, out: set) -> None:
@@ -118,8 +137,79 @@ class Span:
         return False
 
 
+class PathSpan:
+    """A live span of :func:`path_tracer` (use via ``PathTracer.span``): its
+    host seconds go to ``sjpc_span_seconds{span=<path>}`` of the registry it
+    was given, its event to the tracer while an operator has switched it on;
+    while ``profiling``, its body runs inside a profiler range named
+    ``path``.  :meth:`stage` splits the body into consecutive stages, each
+    such a span of its own at ``<path>/<stage>``."""
+
+    __slots__ = ("name", "path", "attrs", "_tracer", "_registry", "_profiling",
+                 "_range", "_stage", "_t0", "_ts", "dispatch_s", "total_s")
+
+    def __init__(self, tracer: "Tracer", registry: MetricsRegistry, name: str, path: str,
+                 profiling: bool, attrs: dict):
+        self.name = name
+        self.path = path
+        self.attrs = attrs
+        self._tracer = tracer
+        self._registry = registry
+        self._profiling = profiling
+        self._range = None
+        self._stage = None
+
+    def stage(self, name: str) -> None:
+        """End the running stage, if any, and start ``name``: the part of
+        the body up to the next stage or the span's end.  A stage is live as
+        its span is, with no check of its own."""
+        self._end_stage(None, None, None)
+        self._stage = PathSpan(self._tracer, self._registry, name, f"{self.path}/{name}",
+                               self._profiling, {})
+        self._stage.__enter__()
+
+    def _end_stage(self, *exc) -> None:
+        if self._stage is not None:
+            self._stage.__exit__(*exc)
+            self._stage = None
+
+    def set(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+    def wait(self, *tensors) -> None:
+        """Block now until the current stream of every CUDA device that
+        ``tensors`` live on has finished its queued work (host tensors wait
+        for nothing)."""
+        devices: set = set()
+        _cuda_devices(tensors, devices)
+        for device in devices:
+            torch.cuda.current_stream(device).synchronize()
+
+    def __enter__(self):
+        if self._profiling:
+            # the profiler's C++ range: about a tenth of record_function's
+            # host cost under a recording profiler
+            self._range = torch._C._profiler._RecordFunctionFast(self.path)
+            self._range.__enter__()
+        self._ts = time.time()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._end_stage(exc_type, exc, tb)
+        self.dispatch_s = self.total_s = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        if exc_type is None:
+            if self._tracer.enabled:
+                self._tracer._emit(self)
+            self._registry.observe(PATH_HISTOGRAM, self.total_s, span=self.path)
+        return False
+
+
 class _NullSpan:
-    """Shared do-nothing span for disabled tracers."""
+    """Shared do-nothing span for disabled tracers (and an off path span,
+    whose stages and waits do nothing)."""
 
     dispatch_s = 0.0
     total_s = 0.0
@@ -129,6 +219,12 @@ class _NullSpan:
         pass
 
     def set(self, **attrs) -> None:
+        pass
+
+    def stage(self, name: str) -> None:
+        pass
+
+    def wait(self, *tensors) -> None:
         pass
 
     def __enter__(self):
@@ -214,3 +310,34 @@ def set_default_tracer(tracer: Tracer) -> Tracer:
     global _DEFAULT
     prev, _DEFAULT = _DEFAULT, tracer
     return prev
+
+
+class PathTracer(Tracer):
+    """The kernel path's tracer (see the module docstring): off by default,
+    live while a ``torch.profiler`` records or while ``enabled`` is set."""
+
+    def switch(self, enabled: bool, *, sink=None) -> None:
+        """An operator's switch: live (or not) without a profiler, its
+        events from now on to ``sink`` (a path, opened on the first event,
+        or a file-like; None: the in-memory ring only).  A path sink opened
+        before is closed."""
+        self.close()
+        self.enabled = enabled
+        self._sink_path = sink if isinstance(sink, str) else None
+        self._sink = None if isinstance(sink, str) else sink
+
+    def span(self, name: str, **attrs):
+        """A root :class:`PathSpan` of ``name`` when live, else the shared
+        null span: the one liveness check of a public call."""
+        profiling = torch.autograd._profiler_enabled()
+        if not (self.enabled or profiling):
+            return NULL_SPAN
+        return PathSpan(self, default_registry(), name, name, profiling, attrs)
+
+
+_PATH = PathTracer(enabled=False)
+
+
+def path_tracer() -> PathTracer:
+    """The process-global tracer of the kernel path."""
+    return _PATH
