@@ -1106,11 +1106,10 @@ def plain_estimate(cfg, counters_a, counters_b, n, join):
 
 def check_batch_estimate(cfg, got, counters_a, counters_b, n, join, what):
     """The batched estimate against the same query through the plain
-    moments: y, x and g bit-equal (the same float32 ops on the card)."""
-    y, x, g = (t.cpu().numpy().astype(np.float64)
-               for t in plain_estimate(cfg, counters_a, counters_b,
-                                       torch.as_tensor(n, dtype=torch.float32,
-                                                       device=counters_a.device), join))
+    moments: y, x and g bit-equal (the same float32 ops on the host)."""
+    y, x, g = (a.astype(np.float64)
+               for a in plain_estimate(cfg, counters_a, counters_b,
+                                       np.asarray(n, dtype=np.float32), join))
     for name, a, b in (("y", got.y, y), ("x", got.x, x), ("g", got.g, g)):
         require(np.array_equal(a, b), f"{what}: {name} differs from the plain path")
         require(bool(np.isfinite(a).all()), f"{what}: {name} not finite")

@@ -31,9 +31,8 @@ open spans of :func:`~repro_torch.obs.trace.path_tracer`, live only while a
 ``torch.profiler`` records or an operator switches it on:
 ``sjpc.update_fused`` (attribute ``rows``) with the stages ``prepare``,
 ``draws`` and ``ingest``; each estimate with ``wait``, ``query``,
-``recursion``, ``to_host`` and ``bounds``.  ``wait`` blocks, while live,
-on the counters' stream, which the estimate's first synchronous copy (a
-float32 constant of the recursion, then the copies to the host) would
+``to_host``, ``recursion`` and ``bounds``.  ``wait`` blocks, while live,
+on the counters' stream, which the estimate's one copy to the host would
 block on anyway: the time the estimate waits for the card's queued work
 is then apart from the host's own.
 """
@@ -56,7 +55,7 @@ from . import projections as proj
 from . import sketch as sk
 from .fingerprint import make_fingerprint_bases
 from .hashing import as_field_tensor
-from .sketch import median_depth
+from .sketch import median_depth, np_median_depth
 
 
 @dataclasses.dataclass(frozen=True)
@@ -481,18 +480,19 @@ class SJPCBatchEstimate(NamedTuple):
     stderr_offline: np.ndarray  # (N, L) sampling-only bound (Theorem 1)
 
 
-def estimate_from_moments(cfg: SJPCConfig, moments: torch.Tensor, n: torch.Tensor, *,
-                          clamp: bool, join: bool):
-    """(N, L, t) float32 row moments -> (y, x, g), each (N, L) float32:
-    the median over depth, then the Eq. 4 (self) or Eq. 7 (join) recursion
-    in float32 in the JAX package's op order, then suffix sums."""
+def estimate_from_moments(cfg: SJPCConfig, moments, n, *, clamp: bool, join: bool):
+    """(N, L, t) float32 row moments and (N,) records -> (y, x, g), each
+    (N, L) float32, on the host: the median over depth, then the Eq. 4
+    (self) or Eq. 7 (join) recursion in float32 in the JAX package's op
+    order, one IEEE operation at a time with each constant rounded once to
+    float32, then suffix sums.  The suffix sums accumulate in float64 from
+    +0.0 and round each entry to float32, as torch's CPU ``cumsum`` does.
+    Tensors are read back to the host, once each."""
     d, s, r = cfg.d, cfg.s, cfg.ratio
-
-    def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=moments.device)
-
-    y = median_depth(moments)
-    X: dict[int, torch.Tensor] = {}
+    f32 = np.float32
+    y = np_median_depth(_host_f32(moments))
+    n = _host_f32(n)
+    X: dict[int, np.ndarray] = {}
     for k in range(d, s - 1, -1):
         if join:
             acc = y[:, k - s] / f32(r * r)
@@ -501,12 +501,13 @@ def estimate_from_moments(cfg: SJPCConfig, moments: torch.Tensor, n: torch.Tenso
         for j in range(k + 1, d + 1):
             acc = acc - f32(math.comb(j, k)) * X[j]
         if clamp:
-            acc = torch.clamp_min(acc, 0.0)
+            # torch.clamp_min's semantics: NaN and -0.0 pass unchanged
+            acc = np.where(acc < 0, f32(0), acc)
         X[k] = acc
-    x = torch.stack([X[k] for k in range(s, d + 1)], dim=1)
+    x = np.stack([X[k] for k in range(s, d + 1)], axis=1)
     if not join:
         x = x / f32(r * r)
-    g = torch.flip(torch.cumsum(torch.flip(x, [1]), dim=1), [1])
+    g = (0.0 + np.cumsum(x[:, ::-1], axis=1, dtype=np.float64))[:, ::-1].astype(np.float32)
     if not join:
         g = g + n[:, None]
     return y, x, g
@@ -538,8 +539,25 @@ def _stack_counters(counters, device) -> torch.Tensor:
     return counters
 
 
-def _host(*tensors) -> list[np.ndarray]:
-    return [t.cpu().numpy().astype(np.float64) for t in tensors]
+def _host_f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    return np.asarray(a, dtype=np.float32)
+
+
+def _read_back(moments: torch.Tensor, *ns) -> list[np.ndarray]:
+    """``moments`` (N, L, t) and each records count of ``ns`` (N values) as
+    float32 host arrays, in one device-to-host copy: counts on a device
+    travel packed beside the moments, counts on the host stay there."""
+    N = moments.shape[0]
+    on_device = [isinstance(v, torch.Tensor) and v.device.type != "cpu" for v in ns]
+    parts = [moments.flatten(1)] + [v.to(moments.device, torch.float32).reshape(N, 1)
+                                    for v, dev in zip(ns, on_device) if dev]
+    packed = _host_f32(torch.cat(parts, dim=1) if len(parts) > 1 else parts[0])
+    width = packed.shape[1] - sum(on_device)
+    columns = iter(packed[:, width:].T)
+    return [packed[:, :width].reshape(moments.shape)] + [
+        next(columns) if dev else _host_f32(v).reshape(N) for v, dev in zip(ns, on_device)]
 
 
 def estimate_batch(cfg: SJPCConfig, counters, n, *, clamp: bool = True,
@@ -547,24 +565,25 @@ def estimate_batch(cfg: SJPCConfig, counters, n, *, clamp: bool = True,
     """Self-join estimates for N stacked sketches, all thresholds at once.
 
     counters: (N, levels, t, w) int32 (stacked ``SJPCState.counters`` of
-    streams sharing one params draw); n: (N,) records per stream.  Tensor
-    counters stay on their device; numpy counters go to ``device``
-    (default: the CUDA card).  ``impl`` names the ``fused_query``
-    implementation (None resolves from the device).
+    streams sharing one params draw); n: (N,) records per stream, on the
+    host or a device.  Tensor counters stay on their device; numpy counters
+    go to ``device`` (default: the CUDA card).  ``impl`` names the
+    ``fused_query`` implementation (None resolves from the device).  The
+    card runs the query alone; one copy brings its moments (and a device
+    ``n``) to the host, where :func:`estimate_from_moments` runs.
     """
     with path_tracer().span("sjpc.estimate_batch") as span:
         counters = _stack_counters(counters, device)
         span.stage("wait")
         span.wait(counters)
         span.stage("query")
-        n = torch.as_tensor(n, dtype=torch.float32).to(counters.device).reshape(
-            counters.shape[0])
         moments = ops.fused_query(counters, impl=impl)
+        span.stage("to_host")
+        moments, n = _read_back(moments, n)
         span.stage("recursion")
         y, x, g = estimate_from_moments(cfg, moments, n, clamp=clamp, join=False)
-        span.stage("to_host")
-        y, x, g, n = _host(y, x, g, n)
         span.stage("bounds")
+        y, x, g, n = (a.astype(np.float64) for a in (y, x, g, n))
         on, off = _batch_bounds(cfg, n, g)
     return SJPCBatchEstimate(x=x, g=g, y=y, n=n, stderr=on, stderr_offline=off)
 
@@ -573,23 +592,22 @@ def estimate_join_batch(cfg: SJPCConfig, counters_a, counters_b, n_a, n_b, *,
                         clamp: bool = True, device=None,
                         impl: str | None = None) -> SJPCBatchEstimate:
     """Join sizes for N stacked sketch PAIRS (identical hash params per
-    pair), all thresholds at once.  Error bars: the self-join bound at
-    n = max(n_a, n_b) with max(estimate, 1) plugged in."""
+    pair), all thresholds at once, read back as :func:`estimate_batch`
+    reads.  Error bars: the self-join bound at n = max(n_a, n_b) with
+    max(estimate, 1) plugged in."""
     with path_tracer().span("sjpc.estimate_join_batch") as span:
         counters_a = _stack_counters(counters_a, device)
         counters_b = _stack_counters(counters_b, counters_a.device)
         span.stage("wait")
         span.wait(counters_a, counters_b)
         span.stage("query")
-        N = counters_a.shape[0]
-        n_a = torch.as_tensor(n_a, dtype=torch.float32).to(counters_a.device).reshape(N)
-        n_b = torch.as_tensor(n_b, dtype=torch.float32).to(counters_a.device).reshape(N)
         moments = ops.fused_query(counters_a, counters_b, impl=impl)
+        span.stage("to_host")
+        moments, n_a, n_b = _read_back(moments, n_a, n_b)
         span.stage("recursion")
         y, x, g = estimate_from_moments(cfg, moments, n_a, clamp=clamp, join=True)
-        span.stage("to_host")
-        y, x, g, n_a, n_b = _host(y, x, g, n_a, n_b)
         span.stage("bounds")
+        y, x, g, n_a, n_b = (a.astype(np.float64) for a in (y, x, g, n_a, n_b))
         on, off = _batch_bounds(cfg, np.maximum(n_a, n_b), np.maximum(g, 1.0))
     return SJPCBatchEstimate(x=x, g=g, y=y, n=np.stack([n_a, n_b], axis=1),
                              stderr=on, stderr_offline=off)

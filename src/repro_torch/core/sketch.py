@@ -83,6 +83,14 @@ def median_depth(moments: torch.Tensor) -> torch.Tensor:
     return (lo + hi) * 0.5
 
 
+def np_median_depth(moments: np.ndarray) -> np.ndarray:
+    """:func:`median_depth` on the host: the same float32 operations on a
+    float32 numpy array."""
+    t = moments.shape[-1]
+    ordered = np.sort(moments, axis=-1)
+    return (ordered[..., (t - 1) // 2] + ordered[..., t // 2]) * np.float32(0.5)
+
+
 def estimate_f2(counters: torch.Tensor) -> torch.Tensor:
     """Median-of-rows second-moment estimate in float32 (the median as
     :func:`median_depth` takes it).  counters: (..., t, w)."""

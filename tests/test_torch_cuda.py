@@ -303,6 +303,50 @@ def test_main_path_on_the_card_equals_the_cpu(cuda):
     np.testing.assert_array_equal(got.y, want.y)
 
 
+def _memcpys(prof) -> tuple[int, int]:
+    """(host-to-device, device-to-host) copies the card ran under ``prof``."""
+    counts = {e.key: e.count for e in prof.key_averages()}
+    return tuple(sum(c for k, c in counts.items() if k.startswith(f"Memcpy {way}"))
+                 for way in ("HtoD", "DtoH"))
+
+
+@pytest.mark.parametrize("n_on_card", [True, False])
+@pytest.mark.parametrize("join", [False, True])
+def test_estimates_read_back_once(cuda, join, n_on_card):
+    """One estimate_batch or estimate_join_batch copies nothing to the card
+    and one buffer back (the moments, with n when it is on the card), and
+    its (y, x, g) equal the plain path's bit for bit."""
+    cfg = sjpc.SJPCConfig(d=6, s=3, width=1024, depth=3, seed=11)
+    rng = np.random.default_rng(11)
+    params, empty = sjpc.init(cfg, device=cuda)
+    a, b = (rng.integers(0, 5, size=(rows, 6)).astype(np.uint32) for rows in (4000, 3000))
+    a = sjpc.update_fused(cfg, params, empty, a)
+    b = sjpc.subtract(sjpc.update_fused(cfg, params, a, b), a)
+    ca, cb = torch.stack([a.counters, b.counters]), torch.stack([b.counters, a.counters])
+    na, nb = torch.stack([a.n, b.n]), torch.stack([b.n, a.n])
+    if not n_on_card:
+        na, nb = na.cpu().numpy(), nb.cpu().numpy()
+
+    def call():
+        if join:
+            return sjpc.estimate_join_batch(cfg, ca, cb, na, nb)
+        return sjpc.estimate_batch(cfg, ca, na)
+
+    call()                                    # builds the query kernel
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = call()
+        torch.cuda.synchronize()
+    assert _memcpys(prof) == (0, 1)
+    moments = ref.fused_query_ref(ca, cb) if join else ref.fused_query_ref(ca, ca)
+    want = sjpc.estimate_from_moments(cfg, moments, na, clamp=True, join=join)
+    for name, w in zip("yxg", want):
+        np.testing.assert_array_equal(getattr(got, name), w.astype(np.float64), err_msg=name)
+    host_n = [np.asarray(torch.as_tensor(v).cpu(), np.float64) for v in (na, nb)]
+    np.testing.assert_array_equal(got.n, np.stack(host_n, axis=1) if join else host_n[0])
+
+
 # ---------------------------------------------------------------------------
 # fused_pairs, sketch_update, sketch_moments, and the estimator path
 # ---------------------------------------------------------------------------

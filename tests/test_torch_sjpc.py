@@ -2,6 +2,7 @@
 the CPU: ingest under the default keys, the batched and scalar queries,
 the state algebra, the numpy round trip, and the package boundary."""
 import ast
+import math
 import pathlib
 
 import numpy as np
@@ -137,6 +138,77 @@ def test_estimate_batch_and_join_batch(depth, clamp):
     _assert_batch_close(
         tsjpc.estimate_join_batch(tcfg, tc, tc[order], n, n[order], clamp=clamp),
         jsjpc.estimate_join_batch(jcfg, jc, jc[np.array(order)], n, n[order], clamp=clamp))
+
+
+def _torch_f32_estimate(cfg, moments, n, *, clamp, join):
+    """The estimate's float32 formulation as torch ops (what ran on the
+    card before the host path): the oracle of the host version."""
+    d, s, r = cfg.d, cfg.s, cfg.ratio
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=moments.device)
+
+    y = tsjpc.median_depth(moments)
+    X = {}
+    for k in range(d, s - 1, -1):
+        if join:
+            acc = y[:, k - s] / f32(r * r)
+        else:
+            acc = y[:, k - s] - f32(math.comb(d, k) * r) * n
+        for j in range(k + 1, d + 1):
+            acc = acc - f32(math.comb(j, k)) * X[j]
+        if clamp:
+            acc = torch.clamp_min(acc, 0.0)
+        X[k] = acc
+    x = torch.stack([X[k] for k in range(s, d + 1)], dim=1)
+    if not join:
+        x = x / f32(r * r)
+    g = torch.flip(torch.cumsum(torch.flip(x, [1]), dim=1), [1])
+    if not join:
+        g = g + n[:, None]
+    return y, x, g
+
+
+def _moments(kind, rng, cfg, join):
+    """(N, L, t) float32 moments and (N,) n: sketch-sized values, values the
+    recursion drives below zero, or values that hit zero exactly."""
+    L, t = cfg.num_levels, cfg.depth
+    if kind == "sketch":
+        m = rng.integers(0, 2**31, size=(6, L, t)).astype(np.float32)
+        if join:
+            m *= rng.choice([-1.0, 1.0], size=m.shape).astype(np.float32)
+        n = rng.integers(1, 2**24, size=6).astype(np.float32)
+    elif kind == "negative":
+        m = rng.integers(-40, 40, size=(6, L, t)).astype(np.float32)
+        n = rng.integers(1000, 5000, size=6).astype(np.float32)
+    else:
+        n = np.array([0, 0, 8, 12, 100, 3], np.float32)
+        # the top level's moments at r * C(d, d) * n: X_d is exactly zero
+        m = np.broadcast_to((cfg.ratio * n)[:, None, None], (6, L, t)).astype(np.float32)
+        m[0] = 0.0
+        m[1] = -0.0
+        m[5, :, 0] = -0.0
+    return m, n
+
+
+@pytest.mark.parametrize("kind", ["sketch", "negative", "zero"])
+@pytest.mark.parametrize("clamp", [True, False])
+@pytest.mark.parametrize("join", [False, True])
+@pytest.mark.parametrize("d,s,depth,ratio", [(6, 3, 3, 0.5), (5, 3, 3, 0.3), (6, 3, 2, 0.5)])
+def test_host_estimate_equals_the_torch_float32_formulation(d, s, depth, ratio, join, clamp,
+                                                          kind):
+    """``estimate_from_moments`` on the host equals the float32 torch ops
+    bit for bit (signed zeros included), from numpy arrays and tensors."""
+    cfg = tsjpc.SJPCConfig(d=d, s=s, ratio=ratio, depth=depth)
+    m, n = _moments(kind, np.random.default_rng(d * 100 + depth), cfg, join)
+    want = _torch_f32_estimate(cfg, torch.from_numpy(m.copy()), torch.from_numpy(n.copy()),
+                               clamp=clamp, join=join)
+    for args in ((m, n), (torch.from_numpy(m.copy()), torch.from_numpy(n.copy()))):
+        got = tsjpc.estimate_from_moments(cfg, *args, clamp=clamp, join=join)
+        for name, a, b in zip("yxg", got, want):
+            assert a.dtype == np.float32 and a.shape == tuple(b.shape), name
+            np.testing.assert_array_equal(a.view(np.uint32), b.numpy().view(np.uint32),
+                                          err_msg=name)
 
 
 def test_scalar_estimates_and_algebra():
